@@ -28,6 +28,9 @@ class GradSdfMap:
         self.cfg = cfg
         self.device = torch.device(device)
         self.grid = vg.create(cfg.grid, self.device)
+        # fusion's frame accumulator: scratch that lives as long as the map,
+        # all-zero between frames (fuse_frame leaves it so); not saved state
+        self.acc = fusion.new_accumulator(self.grid)
         self.counter = 0
         # capacity/world-range growth events, dumped by scan3d --metrics-json
         self.growth_events: list = []
@@ -68,10 +71,10 @@ class GradSdfMap:
         if self.vis is not None:
             self.grid, self.vis = fusion.fuse_frame(
                 self.grid, depth, self.cache, R, t, gcfg, fcfg,
-                vis=self.vis, kf_slot=kf_slot)
+                vis=self.vis, kf_slot=kf_slot, acc=self.acc)
         else:
             self.grid = fusion.fuse_frame(self.grid, depth, self.cache, R, t,
-                                          gcfg, fcfg)
+                                          gcfg, fcfg, acc=self.acc)
         self.counter += 1
         overflow, oob = torch.stack([self.grid.overflow.to(torch.int32),
                                      self.grid.oob_samples]).tolist()
@@ -85,6 +88,8 @@ class GradSdfMap:
         old_blocks = self.cfg.grid.num_blocks
         self.grid, new_gcfg = vg.grow(self.grid, self.cfg.grid)
         self.cfg = dataclasses.replace(self.cfg, grid=new_gcfg)
+        # the accumulator is all-zero here, so growing it is a fresh one
+        self.acc = fusion.new_accumulator(self.grid)
         if self.vis is not None:
             pad = new_gcfg.num_blocks - old_blocks
             self.vis = torch.cat(

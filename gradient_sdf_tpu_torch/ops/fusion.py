@@ -10,11 +10,20 @@ Port of `gradient_sdf_tpu/ops/fusion.py` (`MapGradPixelSdf::update`,
      (:79, :101-106): sample point -> nearest voxel -> projective SDF.
   4. Block allocation for the touched blocks (claim insert,
      ops.voxel_grid), then ONE scatter-add of (w, w*trunc(sdf), w*R n) per
-     sample into a per-frame [nvox, 5] accumulator — on the card that is
-     the hand-written kernel (ops/kernels/scatter_add.py).
+     sample into the [nvox, 8] accumulator (one 32-byte row per voxel) — on
+     the card that is the hand-written kernel (ops/kernels/scatter_add.py),
+     which takes the five fields as they are, without a stacked copy.
   5. Merge with the running state: W' = W + sum w,
      d' = (d W + sum w trunc_sdf) / W', g' = g + sum w R n — the
-     order-independent fixed point of the reference's running mean (:108-116).
+     order-independent fixed point of the reference's running mean
+     (:108-116) — and zero the accumulator again, both over the allocated
+     blocks only; on the card that is the second hand-written kernel
+     (ops/kernels/merge_clear.py).
+
+The accumulator is all-zero on entry and on exit. `GradSdfMap` owns one for
+the life of the map and passes it in as `acc`, so the card never zeroes
+or merges the whole grid per frame; a bare call without `acc` allocates
+(and drops) its own. It is scratch, not part of the map's saved state.
 
 The valid pixels are compacted once (exactly, with a dynamic shape) and all
 of them go through one pass. The JAX package walks fixed-size chunks of the
@@ -39,7 +48,9 @@ import torch
 from ..config import FusionConfig, GridConfig
 from . import voxel_grid as vg
 from .filters import median_blur
-from .kernels.scatter_add import scatter_add_multi
+from .kernels.merge_clear import merge_clear
+from .kernels.scatter_add import new_accumulator as _new_rows
+from .kernels.scatter_add import scatter_add_fields
 from .normals import NormalEstimatorCache, compute_normals
 
 
@@ -206,43 +217,29 @@ def _alloc_slots(grid: vg.VoxelGrid, s: FrameSamples, gcfg: GridConfig):
     return grid, lin, ok
 
 
-def _zero_accs(grid: vg.VoxelGrid, accumulate_gradients: bool):
-    """Fresh per-frame accumulator: f32 [nvox, F] with the fields
-    (w, wd[, wn_x, wn_y, wn_z]) — F = 5, or 2 without gradients."""
-    nvox = grid.num_blocks * grid.voxels_per_block
-    return torch.zeros((nvox, 5 if accumulate_gradients else 2),
-                       dtype=torch.float32, device=grid.device)
+def new_accumulator(grid: vg.VoxelGrid) -> torch.Tensor:
+    """Zeroed frame accumulator for `grid`: f32 [nvox, 8], one 32-byte row
+    per voxel holding (w, wd, wn_x, wn_y, wn_z) and three floats of
+    padding."""
+    return _new_rows(grid.num_blocks * grid.voxels_per_block, grid.device)
 
 
-def _scatter_samples(acc, lin, s: FrameSamples):
+def _scatter_samples(acc, lin, s: FrameSamples, accumulate_gradients: bool):
     """Scatter one batch's contributions into the frame accumulator with ONE
     call of the multi-field scatter-add (the CUDA kernel on the card),
-    updating `acc` in place."""
-    fields = [s.w, s.wd, s.wn_x, s.wn_y, s.wn_z][: acc.shape[1]]
-    payload = torch.stack(fields, dim=-1)
-    return scatter_add_multi(lin.to(torch.int32).contiguous(), payload,
-                             acc.shape[0], acc=acc)
+    updating `acc` in place: F = 5 fields, or 2 without gradients."""
+    fields = [s.w, s.wd, s.wn_x, s.wn_y, s.wn_z]
+    nf = len(fields) if accumulate_gradients else 2
+    scatter_add_fields(lin, fields[:nf], acc.shape[0], acc=acc[:, :nf])
 
 
 def _merge_accumulators(grid: vg.VoxelGrid, acc, accumulate_gradients: bool):
-    """One dense merge of the frame accumulator into the running state, in
-    place: W' = W + sum(w), d' = (d W + sum(w trunc_sdf)) / W',
-    g' = g + sum(w R n) (MapGradPixelSdf.cpp:108-116)."""
-    shape = grid.dist.shape
-    w_acc = acc[:, 0].reshape(shape)
-    wd_acc = acc[:, 1].reshape(shape)
-    new_weight = grid.weight + w_acc
-    new_dist = torch.where(
-        new_weight > 0.0,
-        (grid.dist * grid.weight + wd_acc) / torch.clamp(new_weight, min=1e-30),
-        grid.dist,
-    )
-    grid.dist.copy_(new_dist)
-    grid.weight.copy_(new_weight)
-    if accumulate_gradients:
-        grid.grad_x.add_(acc[:, 2].reshape(shape))
-        grid.grad_y.add_(acc[:, 3].reshape(shape))
-        grid.grad_z.add_(acc[:, 4].reshape(shape))
+    """Merge the frame accumulator into the running state and zero it, in
+    place, over the allocated blocks: W' = W + sum(w),
+    d' = (d W + sum(w trunc_sdf)) / W', g' = g + sum(w R n)
+    (MapGradPixelSdf.cpp:108-116). The CUDA kernel on the card."""
+    merge_clear(acc, grid.weight, grid.dist, grid.grad_x, grid.grad_y,
+                grid.grad_z, grid.num_active, with_grad=accumulate_gradients)
     return grid
 
 
@@ -274,6 +271,7 @@ def fuse_frame(
     vis: Optional[torch.Tensor] = None,
     kf_slot: Optional[int] = None,
     accumulate_gradients: bool = True,
+    acc: Optional[torch.Tensor] = None,
 ):
     """Integrate one depth frame under pose (R, t) (camera-to-world).
 
@@ -281,7 +279,9 @@ def fuse_frame(
     `vis` is int32 [num_blocks, B^3, kf_words]; `kf_slot` the keyframe slot
     to mark (negative = not a keyframe). `accumulate_gradients=False` gives
     the baseline TSDF fusion (`MapPixelSdf::update`,
-    MapPixelSdf.cpp:114-189). All tensors must be on the grid's device.
+    MapPixelSdf.cpp:114-189). `acc` is the caller's all-zero accumulator
+    (`new_accumulator(grid)`), all-zero again on return; without it one is
+    allocated for this call. All tensors must be on the grid's device.
     """
     normal_img = compute_normals(cache, depth)
     if fcfg.median_blur_depth:
@@ -292,7 +292,9 @@ def fuse_frame(
                      valid=torch.ones_like(idx, dtype=torch.bool))
     s = _ray_samples(rays, R, t, gcfg, fcfg)
     grid, lin, ok = _alloc_slots(grid, s, gcfg)
-    acc = _scatter_samples(_zero_accs(grid, accumulate_gradients), lin, s)
+    if acc is None:
+        acc = new_accumulator(grid)
+    _scatter_samples(acc, lin, s, accumulate_gradients)
     grid = _merge_accumulators(grid, acc, accumulate_gradients)
     if vis is None:
         return grid

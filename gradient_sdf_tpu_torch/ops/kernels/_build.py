@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every `csrc/*.cu` source is compiled by `nvcc` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), under
+Every `csrc/*.cu` source is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), under
 `gradient_sdf_tpu_torch/_build/<hash>/`, where the hash covers the sources
 and the flags. A file lock serializes concurrent builds; a finished
-library is reused. Nothing is downloaded: the build reads the sources in
+library is reused, and the compiler's output is kept beside it. Nothing is downloaded: the build reads the sources in
 this checkout and the CUDA toolkit only.
 """
 
@@ -23,12 +24,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libgsdf_kernels.so"
+LOG_NAME = "build.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = None   # wall time of this process's build (0.0 if reused)
-build_log = ""         # the compiler's output (ptxas register/spill report)
+build_log = ""         # the build's compiler output (ptxas register/spill
+                       # report), read back from LOG_NAME if it was reused
+lib_path = None        # the loaded shared library's file
 
 
 def find_nvcc() -> str:
@@ -63,14 +67,61 @@ def _digest(sources) -> str:
 
 def _declare(lib):
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.gsdf_scatter_add_f32.argtypes = [vp, vp, vp, i64, i64, ctypes.c_int, vp]
+    # idx, five field pointers, sample stride, out, row stride, n, out_size,
+    # nf, stream
+    lib.gsdf_scatter_add_f32.argtypes = (
+        [vp] * 6 + [i64, vp, i64, i64, i64, ctypes.c_int, vp])
     lib.gsdf_scatter_add_f32.restype = ctypes.c_int
+    # acc, five fields, num_active, num_blocks, voxels_per_block, with_grad,
+    # stream
+    lib.gsdf_merge_clear_f32.argtypes = (
+        [vp] * 7 + [i64, i64, ctypes.c_int, vp])
+    lib.gsdf_merge_clear_f32.restype = ctypes.c_int
+
+
+def _compile(sources, out_dir, target) -> str:
+    """One `nvcc -c` per source, all started together, then one link.
+    Returns the compilers' output; raises RuntimeError if a step fails."""
+    nvcc = find_nvcc()
+    tag = f".tmp{os.getpid()}"
+    jobs = []
+    for src in sources:
+        obj = os.path.join(
+            out_dir, os.path.splitext(os.path.basename(src))[0] + tag + ".o")
+        cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = None
+    for cmd, _, proc in jobs:
+        log += proc.communicate()[0]
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed is None:
+            tmp = target + tag
+            cmd = [nvcc, "-shared", "-o", tmp] + objs
+            link = subprocess.run(cmd, capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = (link.returncode, cmd)
+            else:
+                os.replace(tmp, target)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    if failed is not None:
+        raise RuntimeError(
+            f"nvcc failed ({failed[0]}): {' '.join(failed[1])}\n{log}")
+    return log
 
 
 def load():
     """Return the loaded kernel library, building it first if needed.
     Raises RuntimeError with the compiler's output if the build fails."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, lib_path
     if _lib is not None:
         return _lib
     sources = _sources()
@@ -83,16 +134,14 @@ def load():
     with open(os.path.join(BUILD_ROOT, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if not os.path.isfile(lib_path):
-                tmp = lib_path + f".tmp{os.getpid()}"
-                cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", tmp] + sources
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                        f"{build_log}")
-                os.replace(tmp, lib_path)
+            log_path = os.path.join(out_dir, LOG_NAME)
+            if not (os.path.isfile(lib_path) and os.path.isfile(log_path)):
+                build_log = _compile(sources, out_dir, lib_path)
+                with open(log_path, "w") as f:
+                    f.write(build_log)
+            else:
+                with open(log_path) as f:
+                    build_log = f.read()
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     build_seconds = time.perf_counter() - t0

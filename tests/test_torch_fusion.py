@@ -225,6 +225,106 @@ def test_map_growth_matches_jax(frames):
     _assert_same_map(jm.grid, tm.grid)
 
 
+def _fuse_torch(frames, tc, acc=None, **kw):
+    tg = tvg.create(GCFG)
+    for depth, R, t in frames:
+        tg = tfu.fuse_frame(tg, torch.from_numpy(depth), tc, torch.from_numpy(R),
+                            torch.from_numpy(t), GCFG, FCFG, acc=acc, **kw)
+    return tg
+
+
+def _assert_same_bits(a, b):
+    da, db = interop.grid_to_numpy(a), interop.grid_to_numpy(b)
+    assert da.keys() == db.keys()
+    for k in da:
+        np.testing.assert_array_equal(da[k], db[k], err_msg=k)
+
+
+@pytest.mark.parametrize("grads", [True, False])
+def test_callers_accumulator_equals_bare_calls_and_stays_zero(frames, caches,
+                                                              grads):
+    """One persistent accumulator carried over three frames gives the bits
+    of three bare calls (each with its own fresh accumulator), and reads
+    zero after every frame."""
+    _, tc = caches
+    bare = _fuse_torch(frames, tc, accumulate_gradients=grads)
+    tg = tvg.create(GCFG)
+    acc = tfu.new_accumulator(tg)
+    assert acc.shape == (GCFG.num_blocks * GCFG.voxels_per_block, 8)
+    for depth, R, t in frames:
+        tg = tfu.fuse_frame(tg, torch.from_numpy(depth), tc, torch.from_numpy(R),
+                            torch.from_numpy(t), GCFG, FCFG, acc=acc,
+                            accumulate_gradients=grads)
+        assert not acc.any()
+    _assert_same_bits(tg, bare)
+    assert float(tg.weight.sum()) > 0
+
+
+@pytest.mark.parametrize("with_vis", [False, True])
+def test_map_accumulator_is_zero_after_update_and_equals_bare_fusion(
+        frames, caches, with_vis):
+    """Two frames fused through a map (persistent accumulator) equal two
+    bare fuse_frame calls; the map's accumulator is all zero in between."""
+    _, tc = caches
+    cfg = jcfg_mod.PipelineConfig(grid=GCFG, fusion=dataclasses.replace(
+        FCFG, normal_window=5))
+    m = TMap(cfg, with_vis=with_vis)
+    assert m.acc.shape == (GCFG.num_blocks * GCFG.voxels_per_block, 8)
+    for depth, R, t in frames[:2]:
+        m.update(depth, K, (R, t), kf_slot=3)
+        assert not m.acc.any()
+    _assert_same_bits(m.grid, _fuse_torch(frames[:2], tc))
+    if with_vis:
+        assert m.vis.any()
+
+
+def test_map_growth_grows_the_accumulator():
+    cfg = jcfg_mod.PipelineConfig()
+    cfg = dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, voxel_size=0.02, num_blocks=16, dir_dim=8))
+    far = jsynth.SphereWorld(centers=jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32),
+                             radii=jnp.asarray([0.3], jnp.float32))
+    R, t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    depth = np.array(jsynth.render_depth(far, jnp.asarray(R), jnp.asarray(t),
+                                           K, W, H))
+    m = TMap(cfg)
+    rows0 = m.acc.shape[0]
+    for _ in range(3):   # overflow and out-of-range frames, then a clean one
+        m.update(depth, K, (R, t))
+        assert not m.acc.any()
+    assert any(e["kind"] == "capacity" for e in m.growth_events)
+    nvox = m.grid.num_blocks * m.grid.voxels_per_block
+    assert nvox > rows0
+    assert m.acc.shape == (nvox, 8) and not m.acc.any()
+    assert int(m.grid.num_active) > 16
+
+
+def test_block_slots_are_handed_out_contiguously_from_zero(frames, caches):
+    """merge_clear walks the slots [0, num_active): the directory must hold
+    exactly those slot ids, and no voxel past them may carry state."""
+    _, tc = caches
+    for upto in (1, 2, 3):
+        tg = _fuse_torch(frames[:upto], tc)
+        na = int(tg.num_active)
+        slots = tg.directory[tg.directory >= 0]
+        np.testing.assert_array_equal(np.sort(slots.numpy()), np.arange(na))
+        for name in ("weight", "dist", "grad_x", "grad_y", "grad_z"):
+            assert not getattr(tg, name)[na:].any(), name
+        assert not tg.block_coords[na:].any()
+        # every slot below num_active was written by the frames
+        assert bool((tg.weight[:na].sum(dim=1) > 0).all())
+
+
+def test_fuse_frame_rejects_an_accumulator_of_another_grid(frames, caches):
+    _, tc = caches
+    depth, R, t = frames[0]
+    tg = tvg.create(GCFG)
+    small = tfu.new_accumulator(tvg.create(dataclasses.replace(GCFG, num_blocks=8)))
+    with pytest.raises(ValueError):
+        tfu.fuse_frame(tg, torch.from_numpy(depth), tc, torch.from_numpy(R),
+                       torch.from_numpy(t), GCFG, FCFG, acc=small)
+
+
 def test_tsdf_grad_and_weights_match_jax(frames, caches):
     jg, tg = _fuse_both(frames[:2], caches, FCFG)
     rng = np.random.default_rng(12)

@@ -5,7 +5,9 @@ The Pallas kernels run as the JAX package's own tests run them on the CPU
 (interpret mode), and their lane-packed output goes through `unpack_multi`.
 On the CPU the port's wrapper takes its plain PyTorch version; the CUDA
 kernel itself is checked by the `gpu`-marked test (skipped without a card)
-and by `chip_smoke.py`.
+and by `chip_smoke.py`. The destination is either a contiguous [V, F] tensor
+or the [:, :F] view of fusion's [V, 8] accumulator (one 32-byte row per
+destination), and the payload either one [N, F] array or F separate ones.
 
 Tolerance: atol 1e-4 on sums of N(0,1) values, ~3-10 per destination —
 float32 sums taken in another order (index_add_ vs the kernel's serial
@@ -73,6 +75,73 @@ def test_multi_matches_jax_pallas_with_carry_in():
         got2.numpy(), np.asarray(jsa.unpack_multi(packed2, V, 5)), atol=ATOL)
 
 
+def _wide(v, f):
+    """Zeroed [v, ACC_ROW] accumulator and its [:, :f] view, fusion's layout
+    (one 32-byte row per destination)."""
+    base = tsa.new_accumulator(v, "cpu")
+    return base, base[:, :f]
+
+
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 5])
+def test_wide_row_view_equals_contiguous_accumulator(f):
+    """The [:, :F] view of the 32-byte-row accumulator takes the same sums
+    as a contiguous [V, F] one (bit for bit: same plain version, same order
+    on the CPU), carry-in included, and the row's padding stays zero."""
+    V = 1600
+    idx, vals = _case(10 + f, 5000, V, f)
+    idx2, vals2 = _case(20 + f, 3000, V, f)
+    base, view = _wide(V, f)
+    tight = torch.zeros((V, f))
+    for i, v in ((idx, vals), (idx2, vals2)):
+        out = tsa.scatter_add_multi(torch.from_numpy(i), torch.from_numpy(v), V,
+                                    acc=view)
+        assert out.data_ptr() == base.data_ptr()
+        tsa.scatter_add_multi(torch.from_numpy(i), torch.from_numpy(v), V,
+                              acc=tight)
+    assert torch.equal(view, tight)
+    assert not base[:, f:].any()
+    want = _numpy_scatter(idx2, vals2, V, _numpy_scatter(idx, vals, V))
+    np.testing.assert_allclose(view.numpy(), want, atol=ATOL)
+
+
+def test_wide_row_view_matches_jax_pallas_with_carry_in():
+    """atol 1e-5: on the CPU both sum each destination's ~3 samples one
+    after the other, in sample order."""
+    V = 1600
+    idx, vals = _case(30, 5000, V, 5)
+    idx2, vals2 = _case(31, 5000, V, 5)
+    packed = jsa.scatter_add_multi(jnp.asarray(idx), jnp.asarray(vals), V,
+                                   interpret=True)
+    packed = jsa.scatter_add_multi(jnp.asarray(idx2), jnp.asarray(vals2), V,
+                                   acc=packed, interpret=True)
+    _, view = _wide(V, 5)
+    tsa.scatter_add_multi(torch.from_numpy(idx), torch.from_numpy(vals), V,
+                          acc=view)
+    tsa.scatter_add_multi(torch.from_numpy(idx2), torch.from_numpy(vals2), V,
+                          acc=view)
+    np.testing.assert_allclose(
+        view.numpy(), np.asarray(jsa.unpack_multi(packed, V, 5)), atol=1e-5)
+
+
+@pytest.mark.parametrize("f", [1, 2, 5])
+@pytest.mark.parametrize("wide", [False, True])
+def test_separate_fields_equal_stacked_payload(f, wide):
+    """`scatter_add_fields` (fusion's call: F separate [N] arrays) is
+    `scatter_add_multi` of their stack."""
+    V = 900
+    idx, vals = _case(40 + f, 4000, V, f)
+    fields = [torch.from_numpy(vals[:, i].copy()) for i in range(f)]
+    acc_a = _wide(V, f)[1] if wide else None
+    acc_b = _wide(V, f)[1] if wide else None
+    got = tsa.scatter_add_fields(torch.from_numpy(idx), fields, V, acc=acc_a)
+    want = tsa.scatter_add_multi(torch.from_numpy(idx), torch.from_numpy(vals),
+                                 V, acc=acc_b)
+    assert got.shape == (V, f)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), _numpy_scatter(idx, vals, V),
+                               atol=ATOL)
+
+
 def test_rows_matches_jax_pallas_and_numpy():
     V = 700
     idx, vals = _case(5, 5000, V, 1)
@@ -110,6 +179,31 @@ def test_cpu_path_does_not_count_launches():
     tsa.scatter_add_multi(torch.tensor([0, 1], dtype=torch.int32),
                           torch.ones((2, 5)), 4)
     assert tsa.launch_count == 0
+
+
+@pytest.mark.parametrize("bad", ["acc_rows_overlap", "acc_fields_apart",
+                                 "acc_dtype", "field_shape", "field_dtype",
+                                 "field_stride", "no_fields"])
+def test_wrapper_rejects_bad_accumulator_views_and_fields(bad):
+    idx = torch.zeros(8, dtype=torch.int32)
+    fields = [torch.zeros(8) for _ in range(5)]
+    acc = torch.zeros((10, 8))[:, :5]
+    if bad == "acc_rows_overlap":
+        acc = torch.zeros(64).as_strided((10, 5), (4, 1))
+    elif bad == "acc_fields_apart":
+        acc = torch.zeros((10, 10))[:, ::2]
+    elif bad == "acc_dtype":
+        acc = torch.zeros((10, 8), dtype=torch.float64)[:, :5]
+    elif bad == "field_shape":
+        fields[3] = torch.zeros(7)
+    elif bad == "field_dtype":
+        fields[0] = torch.zeros(8, dtype=torch.float64)
+    elif bad == "field_stride":
+        fields[1] = torch.zeros(16)[::2]
+    elif bad == "no_fields":
+        fields = []
+    with pytest.raises((TypeError, ValueError)):
+        tsa.scatter_add_fields(idx, fields, 10, acc=acc)
 
 
 @pytest.mark.parametrize("bad", ["idx_dtype", "vals_dtype", "shape", "stride",
@@ -160,3 +254,11 @@ def test_cuda_kernel_matches_reference():
     want = tsa.scatter_add_multi_reference(i_d, v_d, V)
     want = tsa.scatter_add_multi_reference(i_d, v_d, V, acc=want)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=1e-5)
+    # the 32-byte-row accumulator (vector reductions), fields given apart
+    view = tsa.new_accumulator(V, "cuda")[:, :5]
+    fields = [v_d[:, f].contiguous() for f in range(5)]
+    tsa.scatter_add_fields(i_d, fields, V, acc=view)
+    tsa.scatter_add_fields(i_d, fields, V, acc=view)
+    torch.cuda.synchronize()
+    assert tsa.launch_count == 4
+    torch.testing.assert_close(view, want, atol=ATOL, rtol=1e-5)
