@@ -8,13 +8,21 @@ plain PyTorch version on the card, checks card fusion against the port on
 the CPU, then drives the Scan3D main path through its CLI entry point on
 the golden protocol (640x480 spheres, seed 2, 6 frames over a 4 degree
 arc, 2 cm voxels, app-default 16384-block grid) in tracking and in GT-pose
-mode, and checks what comes out. Every phase raises on failure, which ends
-the run non-zero. Needs one CUDA card; fails at once without one. Scratch
-files go to `smoke_out/` under the checkout.
+mode, and checks what comes out. Then the second executable: PhotoBA
+through its CLI entry point on 14 VGA frames over a 10 degree arc
+(tracking + fusion with visibility bits, keyframes, BA, colour upsampling
+and the high-resolution exports; phase 6), the same app on textured
+spheres from ground-truth poses with BA started from perturbed poses
+(phase 6b: BA has to win energy and pose error back), and one BA
+alternation at F = 30 keyframes x V = 102400 voxels x 640x480 images, card
+against CPU (phase 7). Every phase raises on failure, which ends the run
+non-zero. Needs one CUDA card; fails at once without one. Scratch files go
+to `smoke_out/` under the checkout.
 
 Output: one line of numbers per phase; then the card's name and power
 limit (`nvidia-smi`), a JSON line `{"kernels": [...]}` with each kernel's
-launch count in the main-path run, its largest error against the plain
+launch count on the main paths (phase 4's Scan3D run plus phase 6's PhotoBA
+run, each counted from zero), its largest error against the plain
 version, its time beside the plain version's, the byte bound and (for the
 scatter) the bare `index_add_` as the library yardstick, all on golden
 frame 5's real samples; and last `{"ok": true, "device": {...}}`.
@@ -43,6 +51,22 @@ HEAVY_ROWS = 14_000
 # summation order differs (a voxel sums ~10-20 samples)
 FUSE_SHARED_MIN = 0.999
 FUSE_TOL = {"weight": 1e-4, "dist": 1e-5, "grad": 1e-4}
+# one BA alternation, card vs CPU from the same arrays: both run the same
+# float32 operations, and differ in the order of the matrix products' and
+# reductions' sums. A sample whose projection lands within rounding of a
+# pixel edge takes the neighbouring cell's image gradient on one of the two
+# (the bilinear sampler's gradient is piecewise constant), which moves that
+# voxel's dist step: at most BA_OUTLIERS of the voxels may miss the dist
+# tolerance, and their number is printed.
+BA_E_RTOL = 1e-4
+BA_DIST_ATOL, BA_DIST_RTOL = 1e-6, 1e-4
+BA_POSE_ATOL = 1e-5
+BA_OUTLIERS = 1e-3
+PHOTOBA_ARTIFACTS = ["_poses.txt", "mesh_lr.ply", "cloud_lr.ply",
+                     "selected_frame_poses_before_optimization.txt",
+                     "coarse_BA_poses_optimized.txt",
+                     "coarse_BA_mesh_after_upsample.ply",
+                     "coarse_BA_cloud_after_upsample.ply"]
 
 
 def log(msg):
@@ -188,6 +212,21 @@ def phase_kernel():
             f"{ms:.4f} ms into 32-byte rows, {ms_c:.4f} ms into contiguous rows; "
             f"plain {plain:.4f} ms; library_ms (index_add_) {lib:.4f}; byte "
             f"bound {bound:.5f} ms")
+    idx, vals = case(N_SAMPLES, nf=1)
+    keep = (idx >= 0) & (idx < OUT_SIZE)
+    idx64, kept = idx[keep].long(), vals[keep]
+    distinct = int(torch.unique(idx64).numel())
+    dest1 = torch.zeros((OUT_SIZE, 1), device=dev)
+    ms = median_ms(lambda: sa.scatter_add_multi(idx, vals, OUT_SIZE, acc=dest1))
+    plain = median_ms(lambda: sa.scatter_add_multi_reference(
+        idx, vals, OUT_SIZE, acc=dest1))
+    lib = median_ms(lambda: dest1.index_add_(0, idx64, kept))
+    whole = median_ms(lambda: sa.scatter_add_rows(idx, vals[:, 0], OUT_SIZE))
+    log(f"phase2 F=1 N={N_SAMPLES} random over all rows ({distinct} distinct "
+        f"rows): kernel {ms:.4f} ms; plain {plain:.4f} ms; library_ms "
+        f"(index_add_) {lib:.4f}; byte bound "
+        f"{scatter_bound_ms(N_SAMPLES, idx64.numel(), distinct, nf=1):.5f} ms; "
+        f"scatter_add_rows with its zero fill {whole:.4f} ms")
     return max(errs.values())
 
 
@@ -264,6 +303,20 @@ def phase_merge_and_in_situ():
     lin64, kept = lin[inmap].long(), payload[inmap]
     scatter_lib = median_ms(lambda: narrow.index_add_(0, lin64, kept))
     del narrow
+    # the F = 1 launch (`scatter_add_rows`' kernel) on the same samples'
+    # weights, into a contiguous [nvox, 1] destination
+    w1 = s.w[:, None].contiguous()
+    narrow1 = torch.zeros((nvox, 1), device=dev)
+    rows_ms = median_ms(lambda: sa.scatter_add_multi(lin, w1, nvox, acc=narrow1))
+    rows_plain = median_ms(lambda: sa.scatter_add_multi_reference(
+        lin, w1, nvox, acc=narrow1))
+    kept1 = w1[inmap]
+    rows_lib = median_ms(lambda: narrow1.index_add_(0, lin64, kept1))
+    rows_bound = scatter_bound_ms(n, int(inmap.sum()), distinct, nf=1)
+    del narrow1
+    log(f"phase2b scatter F=1 (scatter_add_rows' launch) in situ, frame 5: "
+        f"kernel {rows_ms:.4f} ms, plain {rows_plain:.4f} ms, library_ms "
+        f"(index_add_) {rows_lib:.4f}, byte bound {rows_bound:.5f} ms")
     merge_ms = median_ms(lambda: mc.merge_clear(acc, *spare, grid.num_active))
     merge_plain = median_ms(lambda: mc.merge_clear_reference(
         acc, *spare, grid.num_active))
@@ -471,6 +524,193 @@ def phase_gt(data, n_frames):
         f"{launches}; {fps:.2f} fps")
 
 
+def translation_errors(path, truth):
+    """|t - t_gt| per pose of the TUM trajectory at `path`, matched by stamp."""
+    import numpy as np
+    from gradient_sdf_tpu_torch.utils import tumio
+
+    return [float(np.linalg.norm(t - truth[ts]))
+            for ts, _, t in tumio.read_trajectory(path)]
+
+
+def run_photoba(data, results, extra):
+    """The PhotoBA app on the card through its CLI entry point, the kernel
+    launch counts set to 0 just before and read just after."""
+    from gradient_sdf_tpu_torch.apps import photoba
+
+    metrics_path = os.path.join(results, "metrics.json")
+    os.makedirs(results, exist_ok=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    photoba.main(["--input", data, "--results", results, "--data-type", "synth",
+                  "--voxel-size", "0.02", "--trunc", "5",
+                  "--metrics-json", metrics_path] + extra)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(metrics_path) as f:
+        return json.load(f), launches, wall
+
+
+def check_photoba(m, results, launches):
+    """What `tests/test_photoba_app.py` asks of the JAX app's outputs, and
+    that the run went through both kernels once per fused frame on a CUDA
+    device. Returns (fused frames, HR mesh vertices, HR cloud points)."""
+    import math
+    from gradient_sdf_tpu_torch.utils.ply import load_ply
+
+    for name in PHOTOBA_ARTIFACTS:
+        if not os.path.isfile(os.path.join(results, name)):
+            raise AssertionError(f"photoba did not write {name}")
+    es = m["ba_energies"]
+    if m["keyframes"] < 2 or len(es) < 3:
+        raise AssertionError(f"{m['keyframes']} keyframes, {len(es)} energies")
+    if not all(math.isfinite(e) for e in es):
+        raise AssertionError(f"BA energies {es}")
+    if not m["device"].startswith("cuda"):
+        raise AssertionError(f"photoba ran on {m['device']}")
+    fused = m["timers"]["Integrate depth data into Sdf"]["count"]
+    if fused <= 0 or any(count != fused for count in launches.values()):
+        raise AssertionError(f"kernel launches {launches} for {fused} fused "
+                             f"frames, want one each per frame")
+    mesh = load_ply(os.path.join(results, "coarse_BA_mesh_after_upsample.ply"))
+    cloud = load_ply(os.path.join(results, "coarse_BA_cloud_after_upsample.ply"))
+    if len(mesh["vertex"]) <= 100 or "red" not in mesh["vertex"].dtype.names:
+        raise AssertionError(f"HR mesh: {len(mesh['vertex'])} vertices, "
+                             f"fields {mesh['vertex'].dtype.names}")
+    reds = cloud["vertex"]["red"]
+    if len(reds) <= 50 or not reds.max() > 20:
+        raise AssertionError(f"HR cloud: {len(reds)} points, no colour")
+    return fused, len(mesh["vertex"]), len(reds)
+
+
+def timer_ms(m, name, key="total_s"):
+    return m["timers"][name][key] * 1e3 if name in m["timers"] else 0.0
+
+
+def phase_photoba(data, n_frames):
+    results = os.path.join(WORK, "photoba")
+    m, launches, wall = run_photoba(data, results, ["--key-frame", "5"])
+    fused, n_verts, n_pts = check_photoba(m, results, launches)
+    if len(m["invalid_frames"]) > 2 or fused < n_frames - 2:
+        raise AssertionError(f"invalid frames {m['invalid_frames']}")
+    # No bound on the energies here: the spheres' colours are flat, so only
+    # silhouette voxels carry image gradients, the 6x6 pose systems are
+    # close to singular, and at 640x480 the first undamped pose step raises
+    # the energy in this package and in the JAX app alike (on the CPU, same
+    # data: 7.88 -> 246.7 here, 8.37 -> 365.4 there). Phase 6b holds BA to
+    # a decrease on data where it is well posed.
+    fuse, track = "Integrate depth data into Sdf", "Point optimization"
+    log(f"phase6 photoba on {m['device']}: {n_frames} frames 640x480, {fused} "
+        f"fused with visibility bits, invalid {m['invalid_frames']}, "
+        f"{m['keyframes']} keyframes, BA converged {m['ba_converged']} with "
+        f"energies {[float(f'{e:.6g}') for e in m['ba_energies']]}, HR mesh "
+        f"{n_verts} vertices, HR cloud {n_pts} points, kernel launches "
+        f"{launches}; wall {wall * 1e3:.1f} ms = phase 1 "
+        f"{timer_ms(m, fuse) + timer_ms(m, track):.1f} (track "
+        f"{timer_ms(m, track):.1f}, fuse {timer_ms(m, fuse):.1f}; fuse_ms with "
+        f"with_vis=True median {timer_ms(m, fuse, 'median_s'):.2f}) + BA "
+        f"{timer_ms(m, 'Photometric BA'):.1f} + upsampling "
+        f"{timer_ms(m, 'Color upsampling'):.1f} + decode, exports and the rest")
+    return launches
+
+
+def phase_photoba_recovery():
+    """Textured spheres (with flat colours every residual is zero and BA has
+    nothing to do), fused at the ground-truth poses; BA starts from poses
+    moved by ~3 mm and has to win energy back. The keyframes' translation
+    errors before and after are printed, not checked: the texture pins the
+    cameras to the surface, not to the world, so they may move together."""
+    import numpy as np
+    from gradient_sdf_tpu_torch.apps import make_synth
+    from gradient_sdf_tpu_torch.utils import tumio
+
+    data = os.path.join(WORK, "textured")
+    make_synth.main(["--out", data, "--frames", "8", "--seed", "2", "--width",
+                     "640", "--height", "480", "--arc-deg", "6", "--no-noise",
+                     "--gray-texture"])
+    gt = tumio.read_trajectory(os.path.join(data, "gt_poses.txt"))
+    rng = np.random.RandomState(3)
+    tumio.write_trajectory(
+        os.path.join(data, "ba_init.txt"),
+        [(ts, R, t + (rng.randn(3) * 0.003).astype(np.float32)) for ts, R, t in gt])
+    results = os.path.join(WORK, "photoba_recovery")
+    m, launches, _ = run_photoba(data, results, [
+        "--key-frame", "4", "--pose-file", "gt_poses.txt",
+        "--ba-init-pose-file", "ba_init.txt"])
+    check_photoba(m, results, launches)
+    truth = {ts: t for ts, _, t in gt}
+    before = translation_errors(os.path.join(
+        results, "selected_frame_poses_before_optimization.txt"), truth)
+    after = translation_errors(os.path.join(
+        results, "coarse_BA_poses_optimized.txt"), truth)
+    es = m["ba_energies"]
+    if not es[-1] < 0.9 * es[0] or not np.isfinite(after).all() or after == before:
+        raise AssertionError(f"BA did not recover: energies {es}, pose errors "
+                             f"{before} -> {after} m")
+    log(f"phase6b photoba recovery on textured spheres: {m['keyframes']} "
+        f"keyframes, {(len(es) - 1) // 2} BA iterations in "
+        f"{timer_ms(m, 'Photometric BA'):.1f} ms, energy {es[0]:.6g} -> "
+        f"{es[-1]:.6g}, mean keyframe translation error "
+        f"{np.mean(before) * 1e3:.3f} -> {np.mean(after) * 1e3:.3f} mm")
+
+
+def phase_ba_scale():
+    """One BA alternation at F = 30, V = 102400, 640x480 images: the card
+    against the CPU from the same arrays, then the card's time, kernel
+    count and busy share."""
+    import numpy as np
+    import torch
+    from gradient_sdf_tpu_torch.tools import ba_bench
+    from gradient_sdf_tpu_torch.utils import interop
+
+    arrays = ba_bench.bench_arrays()
+    gcfg, pcfg = ba_bench.bench_configs()
+    out = {}
+    for name in ("cuda", "cpu"):
+        problem = interop.problem_from_numpy(arrays[0], name)
+        state = interop.state_from_numpy(arrays[1], name)
+        t0 = time.perf_counter()
+        new, e_pose, e_dist = ba_bench.alternation(problem, state, gcfg, pcfg)
+        out[name] = (interop.state_to_numpy(new), e_pose, e_dist,
+                     (time.perf_counter() - t0) * 1e3)
+    (sc, ec1, ec2, _), (sh, eh1, eh2, cpu_ms) = out["cuda"], out["cpu"]
+    for what, a, b in (("after the pose step", ec1, eh1),
+                       ("after the dist step", ec2, eh2)):
+        if not (np.isfinite(a) and abs(a - b) <= BA_E_RTOL * abs(b)):
+            raise AssertionError(f"energy {what}: card {a} vs CPU {b}")
+    pose_err = max(np.abs(sc["R"] - sh["R"]).max(), np.abs(sc["t"] - sh["t"]).max())
+    if not pose_err <= BA_POSE_ATOL:
+        raise AssertionError(f"poses after one step: card vs CPU max |err| {pose_err}")
+    moved = np.abs(sh["dist"] - arrays[1]["dist"]).max()
+    miss = np.abs(sc["dist"] - sh["dist"]) > (BA_DIST_ATOL
+                                              + BA_DIST_RTOL * np.abs(sh["dist"]))
+    if not moved > 1e-5 or not np.isfinite(sc["dist"]).all():
+        raise AssertionError(f"dist step: largest move {moved}")
+    if miss.mean() > BA_OUTLIERS:
+        raise AssertionError(f"dist: {miss.sum()} of {miss.size} voxels miss "
+                             f"atol {BA_DIST_ATOL} + rtol {BA_DIST_RTOL}")
+    inliers = np.abs(sc["dist"] - sh["dist"])[~miss].max()
+
+    problem = interop.problem_from_numpy(arrays[0], "cuda")
+    state = interop.state_from_numpy(arrays[1], "cuda")
+    ms, runs = ba_bench.alternation_ms(problem, state, gcfg, pcfg)
+    prof = ba_bench.profile_alternation(problem, state, gcfg, pcfg)
+    V, F = arrays[0]["vis"].shape
+    log(f"phase7 BA alternation F={F} V={V} 640x480, card vs CPU (all {V} "
+        f"voxels): energies {ec1:.6g} / {ec2:.6g} vs {eh1:.6g} / {eh2:.6g} "
+        f"(rtol {BA_E_RTOL}), poses max |err| {pose_err:.3g} (atol "
+        f"{BA_POSE_ATOL}), dist max |err| {inliers:.3g} with {int(miss.sum())} "
+        f"voxels beyond atol {BA_DIST_ATOL} + rtol {BA_DIST_RTOL} (limit "
+        f"{BA_OUTLIERS:g} of them); card {ms:.2f} ms per alternation (median "
+        f"of {[float(f'{r:.2f}') for r in runs]}), CPU {cpu_ms:.0f} ms (first "
+        f"call); profiler: {prof['device_events']} kernels, "
+        f"{prof['cudaLaunchKernel_calls']} cudaLaunchKernel calls, device busy "
+        f"{prof['device_busy_ms']:.2f} of {prof['profiled_wall_ms']:.2f} ms "
+        f"({prof['device_busy_share']:.1%}), host syncs {prof['host_syncs']}")
+    for r in prof["top"][:5]:
+        log(f"  phase7 top kernel: {r['ms']:.3f} ms x{r['count']} {r['name']}")
+
+
 def main():
     import torch
 
@@ -507,6 +747,23 @@ def main():
     launches = phase_app(data, n_frames)
     phase_gt(data, n_frames)
 
+    # PhotoBA: the JAX app test's protocol at full VGA width
+    ba_data = os.path.join(WORK, "photoba_data")
+    ba_frames = 14
+    make_synth.main(["--out", ba_data, "--frames", str(ba_frames), "--seed", "2",
+                     "--width", "640", "--height", "480", "--arc-deg", "10",
+                     "--no-noise"])
+    ba_launches = phase_photoba(ba_data, ba_frames)
+    phase_photoba_recovery()
+    phase_ba_scale()
+    # each main path was counted from zero and launched both kernels
+    paths = {"phase 4 (scan3d)": launches, "phase 6 (photoba)": ba_launches}
+    for path, counts in paths.items():
+        if any(c <= 0 for c in counts.values()):
+            raise AssertionError(f"{path} launched no kernel: {counts}")
+    launches = {k: sum(c[k] for c in paths.values()) for k in launches}
+    counted = "phase 4 (scan3d tracking) + phase 6 (photoba)"
+
     log(smi_line())
     log(json.dumps({"kernels": [{
         "name": "scatter_add_multi",
@@ -514,6 +771,7 @@ def main():
         "source": "gradient_sdf_tpu_torch/csrc/scatter_add.cu",
         "replaces": "gradient_sdf_tpu/ops/pallas/scatter_add.py:103",
         "launches": launches["scatter_add"],
+        "launches_counted_in": counted,
         "bound_by": "bytes",
         **kstats["scatter"],
     }, {
@@ -522,6 +780,7 @@ def main():
         "source": "gradient_sdf_tpu_torch/csrc/merge_clear.cu",
         "replaces": "gradient_sdf_tpu/ops/fusion.py:362",
         "launches": launches["merge_clear"],
+        "launches_counted_in": counted,
         "bound_by": "bytes",
         **kstats["merge"],
     }]}))

@@ -33,6 +33,7 @@ from .. import config as cfg_mod
 from ..data import loaders
 from ..models import tracker as tracker_mod
 from ..models.grad_sdf import GradSdfMap
+from ..utils import device as device_mod
 from ..utils import tumio
 from ..utils.timer import Timer
 
@@ -120,12 +121,7 @@ def _not_ported(args):
 
 
 def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: CUDA is not available (pass --device cpu to "
-            "run on the CPU)")
-    return dev
+    return device_mod.require(name)
 
 
 def _sync(dev):

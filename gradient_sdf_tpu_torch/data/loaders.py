@@ -89,6 +89,12 @@ class ImageLoader:
                         depth=load_depth_png(dp, self.unit),
                         timestamp=ts, index=i)
 
+    def load_color_at(self, index: int) -> Optional[np.ndarray]:
+        """Random-access reload of one frame's colour image, so PhotoBA
+        keeps frame INDICES for its keyframe candidates and decodes only
+        the <= --key-frame sampled images right before BA."""
+        return None
+
 
 class TumrgbdLoader(ImageLoader):
     """TUM RGB-D: `associated.txt` lines `ts_rgb rgb_path ts_depth depth_path`
@@ -116,6 +122,14 @@ class TumrgbdLoader(ImageLoader):
             for i in range(first, last)
         ]
 
+    def __len__(self):
+        return len(self.assoc)
+
+    def load_color_at(self, index: int):
+        if not (0 <= index < len(self.assoc)):
+            return None
+        return load_color_png(os.path.join(self.path, self.assoc[index][1]))
+
 
 class SynthLoader(ImageLoader):
     """Synthetic spheres: `depth/%03d.png` + `rgb/%03d.png` from 1
@@ -137,6 +151,10 @@ class SynthLoader(ImageLoader):
             specs.append((i, f"{i + 1:03d}", cp, dp))
             i += 1
         return specs
+
+    def load_color_at(self, index: int):
+        cp = os.path.join(self.path, "rgb", self._name(index))
+        return load_color_png(cp) if os.path.isfile(cp) else None
 
 
 def make_loader(data_type: str, path: str) -> ImageLoader:

@@ -4,7 +4,8 @@ Port of `gradient_sdf_tpu/models/grad_sdf.py`, single device: a stateful
 wrapper bundling the block-sparse grid, visibility bitfield, frame counter
 and camera LUT cache, with the reference's `Sdf` / `MapGradPixelSdf` API
 (`Sdf.h:113-145`): `setup / update / tsdf / weights / extract_mesh /
-extract_pc / save_sdf`. Tensors live on `device`.
+extract_pc / save_sdf`. Tensors live on `device`: the CUDA card by default,
+`device="cpu"` for tests and CPU callers.
 """
 
 from __future__ import annotations
@@ -18,15 +19,17 @@ import torch
 from ..config import PipelineConfig
 from ..ops import fusion, normals, query
 from ..ops import voxel_grid as vg
+from ..utils import device as device_mod
 from ..utils.logging_util import get_logger
 from ..utils.ply import save_mesh_ply, save_point_cloud_ply
 
 
 class GradSdfMap:
     def __init__(self, cfg: PipelineConfig, with_vis: bool = False,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        # the card unless the caller names another device; raises without one
+        self.device = device_mod.require(device)
         self.grid = vg.create(cfg.grid, self.device)
         # fusion's frame accumulator: scratch that lives as long as the map,
         # all-zero between frames (fuse_frame leaves it so); not saved state
@@ -126,14 +129,7 @@ class GradSdfMap:
     def occupied(self):
         """Host view: (voxel_idx [M,3], dist [M], weight [M], grad [M,3])
         numpy arrays for all voxels in allocated blocks."""
-        na = int(self.grid.num_active)
-        vox = vg.block_local_to_voxel(self.grid.block_coords[:na], self.cfg.grid)
-        vox = vox.reshape(-1, 3).cpu().numpy()
-        dist = self.grid.dist[:na].reshape(-1).cpu().numpy()
-        weight = self.grid.weight[:na].reshape(-1).cpu().numpy()
-        grad = torch.stack([self.grid.grad_x[:na], self.grid.grad_y[:na],
-                            self.grid.grad_z[:na]], dim=-1)
-        return vox, dist, weight, grad.reshape(-1, 3).cpu().numpy()
+        return vg.host_voxels(self.grid, self.cfg.grid)
 
     def extract_pc(self, filename: str, min_weight: float = 5.0) -> bool:
         """Oriented point cloud export (MapGradPixelSdf.cpp:177-220):

@@ -194,10 +194,11 @@ _NEIGHBOR_OFFSETS = np.array(
 
 
 def _gather_padded(grid: vg.VoxelGrid, block_slots: torch.Tensor,
-                   gcfg: GridConfig):
-    """For each block slot, assemble padded (B+1)^3 dist & weight fields
-    (index order [z, y, x]) from the block and its +x/+y/+z neighbors.
-    Missing neighbors contribute weight 0 (their cubes are gated off)."""
+                   gcfg: GridConfig, color_field=None):
+    """For each block slot, assemble padded (B+1)^3 dist & weight (and
+    optionally colour) fields (index order [z, y, x]) from the block and its
+    +x/+y/+z neighbors. Missing neighbors contribute weight 0 (their cubes
+    are gated off)."""
     B = gcfg.block_shape
     dev = grid.device
     coords = grid.block_coords[block_slots.long()]  # [M, 3]
@@ -217,6 +218,12 @@ def _gather_padded(grid: vg.VoxelGrid, block_slots: torch.Tensor,
     P = B + 1
     dpad = torch.zeros((M, P, P, P), dtype=torch.float32, device=dev)
     wpad = torch.zeros((M, P, P, P), dtype=torch.float32, device=dev)
+    cpad = c_blocks = None
+    if color_field is not None:
+        C = color_field.shape[-1]
+        c_blocks = torch.where(present[..., None, None], color_field[safe], zero)
+        c_blocks = c_blocks.reshape(-1, 8, B, B, B, C)
+        cpad = torch.zeros((M, P, P, P, C), dtype=torch.float32, device=dev)
     for oi in range(8):
         ox, oy, oz = (int(v) for v in _NEIGHBOR_OFFSETS[oi])
         # source region within the neighbor block, destination in the pad
@@ -224,15 +231,22 @@ def _gather_padded(grid: vg.VoxelGrid, block_slots: torch.Tensor,
         dz, dy, dx = (slice(B, P) if o else slice(0, B) for o in (oz, oy, ox))
         dpad[:, dz, dy, dx] = d_blocks[:, oi, sz, sy, sx]
         wpad[:, dz, dy, dx] = w_blocks[:, oi, sz, sy, sx]
-    return dpad, wpad, coords
+        if cpad is not None:
+            cpad[:, dz, dy, dx] = c_blocks[:, oi, sz, sy, sx]
+    return dpad, wpad, cpad, coords
 
 
-def _extract_chunk(grid, block_slots, gcfg: GridConfig, iso: float, tri_tab):
+def _extract_chunk(grid, block_slots, gcfg: GridConfig, iso: float, tri_tab,
+                   color_field=None, origin: float = 0.0):
     """Triangles for a chunk of blocks: (tri_verts [M, B^3, MAX_TRIS, 3, 3],
-    tri_valid [M, B^3, MAX_TRIS])."""
+    tri_valid [M, B^3, MAX_TRIS][, tri_colors [M, B^3, MAX_TRIS, 3, C]]).
+    `origin` shifts all voxel centers (the HR lattice sits at
+    voxel_size/2 * idx + voxel_size/4, `HrLayeredMarchingCubes.cpp:817-821`).
+    """
     B = gcfg.block_shape
     dev = grid.device
-    dpad, wpad, coords = _gather_padded(grid, block_slots, gcfg)
+    dpad, wpad, cpad, coords = _gather_padded(grid, block_slots, gcfg,
+                                              color_field)
     M = dpad.shape[0]
 
     co = CORNER_OFFSETS  # [8,3] (x,y,z)
@@ -267,46 +281,75 @@ def _extract_chunk(grid, block_slots, gcfg: GridConfig, iso: float, tri_tab):
     r = torch.arange(B, device=dev)
     zz, yy, xx = torch.meshgrid(r, r, r, indexing="ij")
     base = coords[:, None, None, None, :] * B + torch.stack([xx, yy, zz], dim=-1)
-    everts = (everts + base[..., None, :].to(torch.float32)) * gcfg.voxel_size
+    everts = ((everts + base[..., None, :].to(torch.float32)) * gcfg.voxel_size
+              + origin)
 
     tri_e = tri_tab[config]  # [M,B,B,B,MAX_TRIS*3]
     tvalid = (tri_e[..., 0::3] >= 0) & cube_ok[..., None]
     tri_e_safe = torch.clamp(tri_e, min=0)
     tv = torch.gather(everts, -2, tri_e_safe[..., None].expand(
         tuple(tri_e_safe.shape) + (3,)))  # [M,B,B,B,MAX_TRIS*3,3]
-    return (tv.reshape(M, B * B * B, MAX_TRIS, 3, 3),
-            tvalid.reshape(M, B * B * B, MAX_TRIS))
+    out = (tv.reshape(M, B * B * B, MAX_TRIS, 3, 3),
+           tvalid.reshape(M, B * B * B, MAX_TRIS))
+    if color_field is None:
+        return out
+    # per-vertex colour: the two corners' colours, same edge weight as above
+    C = color_field.shape[-1]
+    c_c = torch.stack(
+        [cpad[:, co[i, 2]:co[i, 2] + B, co[i, 1]:co[i, 1] + B,
+              co[i, 0]:co[i, 0] + B, :] for i in range(8)], dim=-2)
+    ca = c_c[..., ea, :]
+    cb = c_c[..., eb, :]
+    ecolors = ca + frac[..., None] * (cb - ca)  # [M,B,B,B,12,C]
+    tc = torch.gather(ecolors, -2, tri_e_safe[..., None].expand(
+        tuple(tri_e_safe.shape) + (C,)))
+    return out + (tc.reshape(M, B * B * B, MAX_TRIS, 3, C),)
 
 
 def extract_mesh(grid: vg.VoxelGrid, gcfg: GridConfig, iso: float = 0.0,
-                 chunk: int = 256, dedup: bool = True):
+                 chunk: int = 256, dedup: bool = True, color_field=None,
+                 origin: float = 0.0):
     """Extract the iso-surface triangle mesh.
 
     The device computes per-chunk fixed-size triangle soup; the host
     compacts and optionally dedups vertices (the reference appends
     duplicates, :705-711). Returns (vertices [V,3] f32, faces [F,3] i32)
-    as numpy arrays.
+    as numpy arrays and, when `color_field` ([num_blocks, B^3, C], on the
+    grid's device) is given, per-vertex colours [V, C]: a deduplicated
+    vertex keeps the colour of its first occurrence.
     """
     _, tri_np = build_tables()
     tri_tab = torch.as_tensor(tri_np.astype(np.int64), device=grid.device)
     na = int(grid.num_active)
-    verts_out = []
+    with_color = color_field is not None
+    verts_out, colors_out = [], []
     for start in range(0, na, chunk):
         slots = torch.arange(start, min(start + chunk, na), device=grid.device)
-        tv, tvalid = _extract_chunk(grid, slots, gcfg, iso, tri_tab)
+        tv, tvalid, *tc = _extract_chunk(grid, slots, gcfg, iso, tri_tab,
+                                         color_field, origin)
         verts_out.append(tv[tvalid].reshape(-1, 3).cpu().numpy())
+        if with_color:
+            colors_out.append(
+                tc[0][tvalid].reshape(-1, tc[0].shape[-1]).cpu().numpy())
+
+    def result(verts, faces, colors):
+        return (verts, faces, colors) if with_color else (verts, faces)
 
     if not verts_out:
-        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+        return result(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32),
+                      np.zeros((0, 3), np.float32))
     flat = np.concatenate(verts_out, axis=0)
+    colors = np.concatenate(colors_out, axis=0) if with_color else None
     faces = np.arange(len(flat), dtype=np.int32).reshape(-1, 3)
     if not (dedup and len(flat)):
-        return flat, faces
+        return result(flat, faces, colors)
     quantum = gcfg.voxel_size * 1e-4
     keys = np.round(flat / quantum).astype(np.int64)
     _, idx, inv = np.unique(keys, axis=0, return_index=True,
                             return_inverse=True)
     verts = flat[idx]
+    if with_color:
+        colors = colors[idx]
     faces = inv.reshape(-1)[faces].astype(np.int32)
     # drop degenerate triangles (iso-surface passing exactly through a
     # lattice corner collapses some triangles to edges/points)
@@ -315,4 +358,4 @@ def extract_mesh(grid: vg.VoxelGrid, gcfg: GridConfig, iso: float = 0.0,
         & (faces[:, 1] != faces[:, 2])
         & (faces[:, 0] != faces[:, 2])
     )
-    return verts, faces[keep]
+    return result(verts, faces[keep], colors)

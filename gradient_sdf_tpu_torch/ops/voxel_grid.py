@@ -70,7 +70,8 @@ class VoxelGrid(NamedTuple):
         return torch.stack([self.grad_x, self.grad_y, self.grad_z], dim=-1)
 
 
-def create(cfg: GridConfig, device="cpu") -> VoxelGrid:
+def create(cfg: GridConfig, device) -> VoxelGrid:
+    """An empty grid on `device` (required: nothing here picks one)."""
     nb, vpb = cfg.num_blocks, cfg.voxels_per_block
     d3 = cfg.dir_dim**3
     c3 = (cfg.dir_dim // COARSE_FACTOR) ** 3
@@ -246,6 +247,17 @@ def insert_keys(grid: VoxelGrid, keys: torch.Tensor,
     return insert_new(grid, keys, want, cfg)
 
 
+def ensure_blocks(grid: VoxelGrid, voxel_idx: torch.Tensor,
+                  valid: torch.Tensor, cfg: GridConfig) -> VoxelGrid:
+    """Allocate blocks for all (valid) voxel indices that need them
+    (claim-based insert; duplicates fine, no deduplication needed)."""
+    block, _ = voxel_to_block(voxel_idx.reshape(-1, 3), cfg)
+    keys = pack_key(block, cfg)
+    keys = torch.where(valid.reshape(-1), keys,
+                       torch.full_like(keys, EMPTY_KEY))
+    return insert_keys(grid, keys, cfg)
+
+
 # ---------------------------------------------------------------------------
 # growth (episodic host-side capacity increase)
 # ---------------------------------------------------------------------------
@@ -339,3 +351,14 @@ def handle_oob_growth(grid: VoxelGrid, cfg: GridConfig):
 def flat_field(x: torch.Tensor) -> torch.Tensor:
     """View a [num_blocks, B^3, ...] field as [num_blocks * B^3, ...]."""
     return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def host_voxels(grid: VoxelGrid, cfg: GridConfig):
+    """Host view of the allocated blocks, one row per voxel: numpy arrays
+    (voxel_idx [M,3], dist [M], weight [M], grad [M,3])."""
+    na = int(grid.num_active)
+    vox = block_local_to_voxel(grid.block_coords[:na], cfg).reshape(-1, 3)
+    grad = torch.stack([grid.grad_x[:na], grid.grad_y[:na], grid.grad_z[:na]],
+                       dim=-1).reshape(-1, 3)
+    return (vox.cpu().numpy(), grid.dist[:na].reshape(-1).cpu().numpy(),
+            grid.weight[:na].reshape(-1).cpu().numpy(), grad.cpu().numpy())

@@ -34,6 +34,7 @@ class Timer:
 
     def summary(self) -> dict:
         return {
-            k: {"total_s": sum(v), "count": len(v), "mean_s": sum(v) / len(v)}
+            k: {"total_s": sum(v), "count": len(v), "mean_s": sum(v) / len(v),
+                "median_s": sorted(v)[len(v) // 2]}
             for k, v in self.records.items()
         }

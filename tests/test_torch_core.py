@@ -190,7 +190,7 @@ def test_lookup_voxels_after_insert_keys_match_jax():
     keys = np.asarray(jvg.pack_key(jvg.voxel_to_block(jnp.asarray(vox), cfg)[0], cfg))
     keys = np.where(rng.random(250) < 0.7, keys, -1).astype(np.int32)
     jg = jvg.insert_keys(jvg.create(cfg), jnp.asarray(keys), cfg)
-    tg = tvg.insert_keys(tvg.create(cfg), torch.from_numpy(keys), cfg)
+    tg = tvg.insert_keys(tvg.create(cfg, "cpu"), torch.from_numpy(keys), cfg)
     _assert_grids_equal(jg, tg)
     for g, w in zip(tvg.lookup_voxels(tg, torch.from_numpy(vox), cfg),
                     jvg.lookup_voxels(jg, jnp.asarray(vox), cfg)):

@@ -95,7 +95,7 @@ def same_normals(monkeypatch):
 
 def _fuse_both(frames, caches, fcfg, gcfg=GCFG, **kw):
     jc, tc = caches
-    jg, tg = jvg.create(gcfg), tvg.create(gcfg)
+    jg, tg = jvg.create(gcfg), tvg.create(gcfg, "cpu")
     for depth, R, t in frames:
         jg = jfu.fuse_frame(jg, jnp.asarray(depth), jc, jnp.asarray(R),
                             jnp.asarray(t), gcfg, fcfg, **kw)
@@ -155,7 +155,7 @@ def test_fuse_without_gradients_matches_jax(frames, caches):
 
 def test_fuse_matches_oracle_on_two_frames(frames, caches):
     _, tc = caches
-    tg = tvg.create(GCFG)
+    tg = tvg.create(GCFG, "cpu")
     state = None
     for fid, (depth, R, t) in enumerate(frames[:2]):
         nrm = tnorm.compute_normals(tc, torch.from_numpy(depth)).numpy()
@@ -189,7 +189,7 @@ def test_fuse_matches_oracle_on_two_frames(frames, caches):
 def test_visibility_bits_match_jax(frames, caches):
     jc, tc = caches
     depth, R, t = frames[0]
-    jg, tg = jvg.create(GCFG), tvg.create(GCFG)
+    jg, tg = jvg.create(GCFG), tvg.create(GCFG, "cpu")
     jvis = jnp.zeros(tuple(jg.dist.shape) + (2,), jnp.uint32)
     tvis = torch.zeros(tuple(tg.dist.shape) + (2,), dtype=torch.int32)
     for kf in (33, -1, 31):   # word 1; not a keyframe; the sign bit of word 0
@@ -215,7 +215,7 @@ def test_map_growth_matches_jax(frames):
     R, t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
     depth = np.array(jsynth.render_depth(far, jnp.asarray(R), jnp.asarray(t),
                                            K, W, H))
-    jm, tm = JMap(cfg), TMap(cfg)
+    jm, tm = JMap(cfg), TMap(cfg, device="cpu")
     for _ in range(3):
         jm.update(jnp.asarray(depth), K, (jnp.asarray(R), jnp.asarray(t)))
         tm.update(depth, K, (R, t))
@@ -226,7 +226,7 @@ def test_map_growth_matches_jax(frames):
 
 
 def _fuse_torch(frames, tc, acc=None, **kw):
-    tg = tvg.create(GCFG)
+    tg = tvg.create(GCFG, "cpu")
     for depth, R, t in frames:
         tg = tfu.fuse_frame(tg, torch.from_numpy(depth), tc, torch.from_numpy(R),
                             torch.from_numpy(t), GCFG, FCFG, acc=acc, **kw)
@@ -248,7 +248,7 @@ def test_callers_accumulator_equals_bare_calls_and_stays_zero(frames, caches,
     zero after every frame."""
     _, tc = caches
     bare = _fuse_torch(frames, tc, accumulate_gradients=grads)
-    tg = tvg.create(GCFG)
+    tg = tvg.create(GCFG, "cpu")
     acc = tfu.new_accumulator(tg)
     assert acc.shape == (GCFG.num_blocks * GCFG.voxels_per_block, 8)
     for depth, R, t in frames:
@@ -268,7 +268,7 @@ def test_map_accumulator_is_zero_after_update_and_equals_bare_fusion(
     _, tc = caches
     cfg = jcfg_mod.PipelineConfig(grid=GCFG, fusion=dataclasses.replace(
         FCFG, normal_window=5))
-    m = TMap(cfg, with_vis=with_vis)
+    m = TMap(cfg, with_vis=with_vis, device="cpu")
     assert m.acc.shape == (GCFG.num_blocks * GCFG.voxels_per_block, 8)
     for depth, R, t in frames[:2]:
         m.update(depth, K, (R, t), kf_slot=3)
@@ -287,7 +287,7 @@ def test_map_growth_grows_the_accumulator():
     R, t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
     depth = np.array(jsynth.render_depth(far, jnp.asarray(R), jnp.asarray(t),
                                            K, W, H))
-    m = TMap(cfg)
+    m = TMap(cfg, device="cpu")
     rows0 = m.acc.shape[0]
     for _ in range(3):   # overflow and out-of-range frames, then a clean one
         m.update(depth, K, (R, t))
@@ -318,8 +318,8 @@ def test_block_slots_are_handed_out_contiguously_from_zero(frames, caches):
 def test_fuse_frame_rejects_an_accumulator_of_another_grid(frames, caches):
     _, tc = caches
     depth, R, t = frames[0]
-    tg = tvg.create(GCFG)
-    small = tfu.new_accumulator(tvg.create(dataclasses.replace(GCFG, num_blocks=8)))
+    tg = tvg.create(GCFG, "cpu")
+    small = tfu.new_accumulator(tvg.create(dataclasses.replace(GCFG, num_blocks=8), "cpu"))
     with pytest.raises(ValueError):
         tfu.fuse_frame(tg, torch.from_numpy(depth), tc, torch.from_numpy(R),
                        torch.from_numpy(t), GCFG, FCFG, acc=small)
@@ -330,7 +330,7 @@ def test_tsdf_grad_and_weights_match_jax(frames, caches):
     rng = np.random.default_rng(12)
     # points within half a voxel of observed voxels, and some anywhere
     # (mostly absent from the map)
-    m = TMap(jcfg_mod.PipelineConfig(grid=GCFG, fusion=FCFG))
+    m = TMap(jcfg_mod.PipelineConfig(grid=GCFG, fusion=FCFG), device="cpu")
     m.grid = tg
     vox, _, weight, _ = m.occupied()
     near = vox[weight > 0][rng.integers(0, int((weight > 0).sum()), 3000)]

@@ -160,7 +160,7 @@ def test_interop_roundtrip_keeps_a_merged_grid():
     """The accumulator is scratch: a grid merged in place still converts to
     the checkpoint's arrays and back unchanged."""
     f, acc = _state(6)
-    tg = tvg.create(GCFG)
+    tg = tvg.create(GCFG, "cpu")
     a, fields, na = _torch_state(f, acc)
     tg = tg._replace(num_active=na, **dict(zip(FIELDS, fields)))
     mc.merge_clear(a, tg.weight, tg.dist, tg.grad_x, tg.grad_y, tg.grad_z,

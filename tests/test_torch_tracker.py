@@ -195,7 +195,7 @@ def test_no_map_gives_no_residuals(setup):
                          jnp.asarray(poses[4][1]), empty_cfg, FCFG, TCFG)
     from gradient_sdf_tpu_torch.ops import voxel_grid as tvg
 
-    rt = ttr.track_frame(tvg.create(empty_cfg), torch.from_numpy(depths[4]), K,
+    rt = ttr.track_frame(tvg.create(empty_cfg, "cpu"), torch.from_numpy(depths[4]), K,
                          torch.from_numpy(poses[4][0]),
                          torch.from_numpy(poses[4][1]), empty_cfg, FCFG, TCFG)
     assert rt.num_valid == int(rj.num_valid) == 0
