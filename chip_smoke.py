@@ -21,11 +21,12 @@ to `smoke_out/` under the checkout.
 
 Output: one line of numbers per phase; then the card's name and power
 limit (`nvidia-smi`), a JSON line `{"kernels": [...]}` with each kernel's
-launch count on the main paths (phase 4's Scan3D run plus phase 6's PhotoBA
-run, each counted from zero), its largest error against the plain
-version, its time beside the plain version's, the byte bound and (for the
-scatter) the bare `index_add_` as the library yardstick, all on golden
-frame 5's real samples; and last `{"ok": true, "device": {...}}`.
+launch count on the main paths (phase 4's Scan3D run, phase 6's PhotoBA
+run, phase 9's renders and phase 10's base-SDF run, each counted from
+zero), its largest error against the plain version, its time beside the plain version's, the byte bound and (for the
+scatter) the bare `index_add_` as the library yardstick, on golden frame
+5's real samples and, for the march, on the render scene's rays; and last
+`{"ok": true, "device": {...}}`.
 """
 
 import json
@@ -62,6 +63,42 @@ BA_E_RTOL = 1e-4
 BA_DIST_ATOL, BA_DIST_RTOL = 1e-6, 1e-4
 BA_POSE_ATOL = 1e-5
 BA_OUTLIERS = 1e-3
+# the march kernel vs its plain version on the card: the kernel's source is
+# built without fused multiply-adds and applies the plain version's float32
+# operations in its order, so every ray must agree bit for bit
+MARCH_RAYS_DIFFERING = 0
+# a render on the card vs the same grid rendered on the CPU (plain march):
+# the marches are the same IEEE operations, but the rays come from a
+# [N,3] x [3,3] product and a norm whose sums the two devices order
+# differently, and a probe within an ulp of a voxel plane then reads the
+# neighbouring voxel. The JAX-vs-port CPU test's allowances are used: hit
+# masks on at most 0.5% of the hits, depth median 1e-5 m, 99.5% under 1e-4
+# m, the rest under 1.5 voxels.
+RENDER_HIT_FLIPS = 0.005
+RENDER_DEPTH_MEDIAN, RENDER_DEPTH_TAIL = 1e-5, 1e-4
+# a checkpointed, cut and resumed run vs the uninterrupted one, both on the
+# card. Float atomics reorder fusion's sums from run to run, so two maps
+# differ in their last bits.
+# With ground-truth poses nothing amplifies that: the resumed map must hold
+# the same observed voxels as the uninterrupted one, with dist equal to
+# RESUME_GT_DIST. This is the check of the restored device state (map,
+# accumulator, counter).
+# With tracking, GN turns the last bits into pose differences of the size of
+# its stopping rule: iteration ends once a step is shorter than 1e-3 and that
+# step is not applied, so one run may take a last step of up to 1e-3 that the
+# other skips, on every frame. Two UNINTERRUPTED runs differ the same way, so
+# the gate is RESUME_POSE_FACTOR times the difference between phase 4's
+# warm-up and measured run in this same process, or times RESUME_POSE_FLOOR
+# (half a stopping step) where those two happen to agree better. The map
+# follows the poses: dist p99 within the same bound. The start index and the
+# warm start are device-independent code that the CPU test holds bit-exact
+# (tests/test_torch_checkpoint.py: one fixed summation order there).
+RESUME_GT_SHARED_MIN = 0.9999   # share of observed voxels in both maps
+RESUME_GT_DIST = 1e-5           # m, max |err| on the shared voxels
+RESUME_POSE_FACTOR = 3.0
+RESUME_POSE_FLOOR = 5e-4        # m, and rotation matrix entries
+RESUME_SHARED_MIN = 0.99        # tracked runs: share of observed voxels
+BASE_SDF_ERR_LIMIT = 0.02       # m, relative translation error
 PHOTOBA_ARTIFACTS = ["_poses.txt", "mesh_lr.ply", "cloud_lr.ply",
                      "selected_frame_poses_before_optimization.txt",
                      "coarse_BA_poses_optimized.txt",
@@ -81,13 +118,14 @@ def smi_line():
 
 
 def phase_build():
-    """Build both kernels; fail on register spills, and on a scatter kernel
+    """Build the kernels; fail on register spills, and on a scatter kernel
     whose machine code holds no vector reduction."""
     import re
     from gradient_sdf_tpu_torch.ops.kernels import _build
 
     lib = _build.load()
-    for name in ("gsdf_scatter_add_f32", "gsdf_merge_clear_f32"):
+    for name in ("gsdf_scatter_add_f32", "gsdf_merge_clear_f32",
+                 "gsdf_raycast_march_f32"):
         getattr(lib, name)   # AttributeError if the library lacks a kernel
     ptxas = [l.strip() for l in _build.build_log.splitlines() if "ptxas" in l
              or "spill" in l]
@@ -443,22 +481,27 @@ def run_app(data, results, extra):
         return json.load(f)
 
 
-def reset_launch_counts():
+def kernel_modules():
     from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
     from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
 
-    sa.reset_launch_count()
-    mc.reset_launch_count()
+    return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm}
+
+
+def reset_launch_counts():
+    for mod in kernel_modules().values():
+        mod.reset_launch_count()
 
 
 def launch_counts():
-    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
-    from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
-
-    return {"scatter_add": sa.launch_count, "merge_clear": mc.launch_count}
+    return {name: mod.launch_count for name, mod in kernel_modules().items()}
 
 
-def check_outputs(m, results, launches, n_frames):
+FUSION_KERNELS = ("scatter_add", "merge_clear")
+
+
+def check_outputs(m, results, launches, n_frames, cloud=True):
     from gradient_sdf_tpu_torch.utils.ply import load_ply
 
     if m["invalid_frames"]:
@@ -466,15 +509,17 @@ def check_outputs(m, results, launches, n_frames):
     if m["overflow"] or m["num_blocks_active"] <= 0 or m["frames"] != n_frames:
         raise AssertionError(f"bad map state {m}")
     fused = sum(1 for e in m["frame_log"] if e["fuse_ms"] is not None)
-    # the main path launches each kernel exactly once per fused frame
-    if any(count != fused for count in launches.values()):
+    # the main path launches each fusion kernel exactly once per fused frame
+    if any(launches[k] != fused for k in FUSION_KERNELS):
         raise AssertionError(f"kernel launches {launches} for {fused} fused "
                              f"frames, want one each per frame")
     mesh = load_ply(os.path.join(results, "gradient_sdf_mesh_final.ply"))
-    cloud = load_ply(os.path.join(results, "gradient_sdf_cloud_final.ply"))
+    cloud_path = os.path.join(results, "gradient_sdf_cloud_final.ply")
     n_faces = len(mesh.get("face", []))
-    n_pts = len(cloud["vertex"])
-    if n_faces <= 0 or n_pts <= 0:
+    n_pts = len(load_ply(cloud_path)["vertex"]) if cloud else None
+    if not cloud and os.path.exists(cloud_path):
+        raise AssertionError("a point cloud was written where none is due")
+    if n_faces <= 0 or (cloud and n_pts <= 0):
         raise AssertionError(f"mesh faces {n_faces}, cloud points {n_pts}")
     return fused, n_faces, n_pts
 
@@ -497,7 +542,7 @@ def phase_app(data, n_frames):
     run_app(data, os.path.join(WORK, "warm"), ["--pose-file", "none"])
     results = os.path.join(WORK, "track")
     reset_launch_counts()
-    m = run_app(data, results, ["--pose-file", "none"])
+    m = run_app(data, results, ["--pose-file", "none", "--save-sdf"])
     launches = launch_counts()
     fused, n_faces, n_pts = check_outputs(m, results, launches, n_frames)
     errs = rel_translation_errors(results, data)
@@ -509,13 +554,13 @@ def phase_app(data, n_frames):
         f"points, kernel launches {launches}, max rel. translation error "
         f"{max(errs) * 1e3:.3f} mm; {fps:.2f} fps all frames, "
         f"{fps_steady:.2f} fps frames 1-{n_frames - 1}")
-    return launches
+    return launches, m, max(errs)
 
 
 def phase_gt(data, n_frames):
     results = os.path.join(WORK, "gt")
     reset_launch_counts()
-    m = run_app(data, results, ["--pose-file", "gt_poses.txt"])
+    m = run_app(data, results, ["--pose-file", "gt_poses.txt", "--save-sdf"])
     launches = launch_counts()
     fused, n_faces, n_pts = check_outputs(m, results, launches, n_frames)
     fps, _ = frame_summary("gt", m)
@@ -569,7 +614,7 @@ def check_photoba(m, results, launches):
     if not m["device"].startswith("cuda"):
         raise AssertionError(f"photoba ran on {m['device']}")
     fused = m["timers"]["Integrate depth data into Sdf"]["count"]
-    if fused <= 0 or any(count != fused for count in launches.values()):
+    if fused <= 0 or any(launches[k] != fused for k in FUSION_KERNELS):
         raise AssertionError(f"kernel launches {launches} for {fused} fused "
                              f"frames, want one each per frame")
     mesh = load_ply(os.path.join(results, "coarse_BA_mesh_after_upsample.ply"))
@@ -627,7 +672,7 @@ def phase_photoba_recovery():
     data = os.path.join(WORK, "textured")
     make_synth.main(["--out", data, "--frames", "8", "--seed", "2", "--width",
                      "640", "--height", "480", "--arc-deg", "6", "--no-noise",
-                     "--gray-texture"])
+                     "--gray-texture", "--device", "cuda"])
     gt = tumio.read_trajectory(os.path.join(data, "gt_poses.txt"))
     rng = np.random.RandomState(3)
     tumio.write_trajectory(
@@ -711,6 +756,298 @@ def phase_ba_scale():
         log(f"  phase7 top kernel: {r['ms']:.3f} ms x{r['count']} {r['name']}")
 
 
+def phase_march():
+    """`raycast_march` vs `raycast_march_reference` on the card on every ray
+    of the render scene's pose 4, unwindowed and inside the raster windows;
+    then both timed. Returns (scene, the unwindowed pass's numbers)."""
+    import torch
+    from gradient_sdf_tpu_torch.tools import raycast_bench as rb
+
+    t0 = time.perf_counter()
+    scene = rb.render_scene(torch.device("cuda"))
+    torch.cuda.synchronize()
+    grid, gcfg, fcfg, _, poses = scene
+    log(f"phase8 render scene: 16 frames 640x480 fused at 1 cm into "
+        f"{int(grid.num_active)} of {grid.num_blocks} blocks in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    for windowed in (False, True):
+        r = rb.march_check_and_time(grid, gcfg, fcfg, *poses[4], windowed)
+        if (r["rays_differing"] > MARCH_RAYS_DIFFERING
+                or r["touched_differing"] > MARCH_RAYS_DIFFERING):
+            raise AssertionError(
+                f"raycast_march vs plain, windowed={windowed}: "
+                f"{r['rays_differing']} of {r['rays']} rays differ "
+                f"({r['found_differing']} in found), max |s_star err| "
+                f"{r['max_abs_err']}, {r['touched_differing']} sector marks "
+                f"differ; want bit equality")
+        if not 0.1 * r["rays"] < r["found"] < 0.9 * r["rays"]:
+            raise AssertionError(f"march found {r['found']} of {r['rays']} rays")
+        log(f"phase8 raycast_march vs plain, "
+            f"{'raster windows' if windowed else 'unwindowed'}: {r['rays']} rays, "
+            f"{r['found']} found, {r['rays_differing']} rays differ (found, s_mid, "
+            f"s_star, probe counts; bit equality), max_abs_err {r['max_abs_err']:.3g}; "
+            f"probes per ray mean {r['probes_mean']:.2f} p99 {r['probes_p99']:.0f} "
+            f"max {r['probes_max']}, {r['sectors']} gathers of a 32 B sector, "
+            f"{r['distinct_sectors']} distinct sectors; kernel "
+            f"{r['ms']:.4f} ms ({r['gathered_gb_per_s']:.0f} GB/s gathered), plain "
+            f"{r['plain_ms']:.1f} ms (one call, host clock), bound_ms "
+            f"{r['bound_ms']:.5f} by {r['bound_by']} (bytes, ray state + each "
+            f"distinct sector once: {r['bytes_bound_ms']:.5f}; operations of the "
+            f"probes made: {r['ops_bound_ms']:.5f}), warp lanes in use "
+            f"{r['warp_lane_use']:.3f} (mean over warps of the slowest ray: "
+            f"{r['warp_max_probes_mean']:.1f} probes), library_ms null")
+        out[windowed] = r
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return scene, {k: out[False][k] for k in keys}
+
+
+def same_render(got, want, what, voxel):
+    """The two renders' hit masks and depths within RENDER_*; returns a
+    summary for the log."""
+    import numpy as np
+
+    (dg, hg), (dw, hw) = got, want
+    n_hit = max(int(hw.sum()), 1)
+    flips = int((hg ^ hw).sum())
+    both = hg & hw
+    err = np.abs(dg[both] - dw[both])
+    rest = int((err >= RENDER_DEPTH_TAIL).sum())
+    if (flips > RENDER_HIT_FLIPS * n_hit or np.median(err) >= RENDER_DEPTH_MEDIAN
+            or np.quantile(err, 0.995) >= RENDER_DEPTH_TAIL
+            or err.max() >= 1.5 * voxel):
+        raise AssertionError(
+            f"{what}: {flips} of {n_hit} hits differ, depth median "
+            f"{np.median(err)}, {rest} beyond {RENDER_DEPTH_TAIL}, max {err.max()}")
+    return (f"{flips} of {n_hit} hits differ, depth median {np.median(err):.3g} "
+            f"max {err.max():.3g} m, {rest} beyond {RENDER_DEPTH_TAIL}")
+
+
+def phase_render(scene):
+    """`render_depth_normal` on the render scene in its four modes, with the
+    gates of the JAX package's tests; the card's render against the CPU's."""
+    import numpy as np
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.tools import raycast_bench as rb
+
+    grid, gcfg, fcfg, world, poses = scene
+    R, t = poses[4]
+    vs = gcfg.voxel_size
+
+    def host(res):
+        return res[0].cpu().numpy(), res[2].cpu().numpy()
+
+    reset_launch_counts()
+    renders = {name: rb.render(grid, gcfg, fcfg, R, t, **kw)
+               for name, kw in rb.RENDER_MODES.items()}
+    renders["incremental"] = rb.render(grid, gcfg, fcfg, R, t,
+                                       depth_prior=renders["stride4"][0],
+                                       **rb.INCREMENTAL)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches["raycast_march"] != 5:   # two for the stride prior, one each else
+        raise AssertionError(f"five marches expected, counted {launches}")
+    normal = renders["stride4"][1]
+    if not bool(torch.isfinite(normal).all()) or normal.shape != (rb.H, rb.W, 3):
+        raise AssertionError("normal image malformed")
+    d = {k: host(v) for k, v in renders.items()}
+
+    # against the analytic depth of the same world (tests/test_raycast.py:47-51)
+    gt = synth.render_depth(world, R, t, synth.KINECT_K, rb.W, rb.H).cpu().numpy()
+    depth, hit = d["stride4"]
+    overlap = hit & (gt > 0)
+    med = float(np.median(np.abs(depth[overlap] - gt[overlap])))
+    if not overlap.sum() > 0.7 * (gt > 0).sum() or not med < vs:
+        raise AssertionError(f"render vs analytic: {overlap.sum()} of "
+                             f"{(gt > 0).sum()} hits, median |err| {med}")
+    # the windowed renders against the unwindowed one, and the incremental
+    # render against the render its prior came from, with the gates of
+    # tests/test_raycast.py (:99-106, test_raster_prior_matches_full_march,
+    # test_depth_prior_tight_margin). One gate of that single-sphere test
+    # does not carry over to the stride prior here: its bound on the LARGEST
+    # depth difference (10 voxels). This scene has occlusion boundaries, and
+    # a silhouette ray whose coarse neighbourhood saw only the far sphere
+    # starts its window behind the near one (what `prior_miss_skip`'s note
+    # calls geometry thinner than the prior stride); such rays are counted
+    # and bounded by the 99.5% gate instead. The exact raster windows keep it.
+    d0, h0 = d["no_prior"]
+    notes = []
+    for name, (dr, hr) in (("stride4", (d0, h0)), ("raster", (d0, h0)),
+                           ("incremental", d["stride4"])):
+        d1, h1 = d[name]
+        both = hr & h1
+        err = np.abs(d1[both] - dr[both])
+        q = 0.99 if name == "incremental" else 0.995
+        ok = np.quantile(err, q) < 1.5 * vs
+        if name == "stride4":
+            ok &= (hr ^ h1).sum() <= 0.02 * max(both.sum(), 1)
+        elif name == "raster":   # exact culling: no hit lost, none invented
+            ok &= not (hr & ~h1).any() and err.max() < 10 * vs
+            ok &= (h1 & ~hr).sum() <= 0.005 * max(hr.sum(), 1)
+        else:                    # holes stay misses, the prior's hits are kept
+            ok &= not (h1 & ~hr).any() and both.sum() > 0.93 * hr.sum()
+        off = int((err >= 1.5 * vs).sum())
+        note = (f"{name} {int(h1.sum())} hits, {int((hr ^ h1).sum())} differ, depth "
+                f"p{q * 100:g} {np.quantile(err, q):.3g} max {err.max():.3g} m, "
+                f"{off} rays beyond 1.5 voxels")
+        if not ok:
+            raise AssertionError(f"render gates: {note}")
+        notes.append(note)
+    # the card against the CPU (plain march) on the same grid
+    t0 = time.perf_counter()
+    cpu_grid = vg.VoxelGrid(*(a.cpu() for a in grid))
+    cpu = host(rb.render(cpu_grid, gcfg, fcfg, R, t))
+    cpu_s = time.perf_counter() - t0
+    if launch_counts()["raycast_march"] != 5:
+        raise AssertionError("the CPU render launched the CUDA kernel")
+    vs_cpu = same_render(d["stride4"], cpu, "card vs CPU render", vs)
+    log(f"phase9 render_depth_normal {rb.W}x{rb.H}, 1 cm voxels: {int(hit.sum())} hits, "
+        f"{int(overlap.sum())} of {int((gt > 0).sum())} analytic hits found, median "
+        f"|depth err| {med * 1e3:.3f} mm (limit one voxel, {vs * 1e3:.0f} mm); vs "
+        f"unwindowed (incremental: vs its prior's render): {'; '.join(notes)}; "
+        f"card vs CPU (plain march, {cpu_s:.1f} s): "
+        f"{vs_cpu}; raycast_march launches {launches['raycast_march']}")
+    for name, kw in list(rb.RENDER_MODES.items()) + [
+            ("incremental", dict(depth_prior=renders["stride4"][0], **rb.INCREMENTAL))]:
+        r = rb.time_render(grid, gcfg, fcfg, R, t, **kw)
+        log(f"  phase9 {name}: {r['ms']:.3f} ms per render (host clock, median of "
+            f"5), {r['mrays_per_s']:.2f} Mrays/s, "
+            f"{r['march_launches_per_render']} march launches")
+    return launches
+
+
+def sdf_dump(prefix):
+    """--save-sdf dump -> {linear voxel index: dist}, with its grid_info."""
+    import numpy as np
+
+    with open(prefix + "_grid_info.txt") as f:
+        info = f.read()
+    a = np.loadtxt(prefix + "_sdf_d.txt", ndmin=2)
+    return info, dict(zip(a[:, 0].astype(np.int64).tolist(), a[:, 1].tolist()))
+
+
+def map_diff(prefix_a, prefix_b):
+    """Two --save-sdf dumps: (observed voxels of a, of b, share of voxels in
+    both, |dist a - dist b| on those)."""
+    import numpy as np
+
+    info_a, da = sdf_dump(prefix_a)
+    info_b, db = sdf_dump(prefix_b)
+    shared = sorted(set(da) & set(db)) if info_a == info_b else []
+    frac = len(shared) / max(len(da), len(db), 1)
+    err = np.abs(np.array([da[k] for k in shared]) - np.array([db[k] for k in shared]))
+    return len(da), len(db), frac, err
+
+
+def cut_and_resume(data, results, pose_file, extra=()):
+    """Scan3D through frame 3 with a checkpoint every 3 fused frames, then a
+    second run resumed from that file. Returns (poses in the checkpoint, the
+    resumed run's metrics)."""
+    import numpy as np
+
+    run_app(data, results, ["--pose-file", pose_file, "--last", "3",
+                            "--checkpoint-every", "3"])
+    ckpt = os.path.join(results, "checkpoint.npz")
+    with np.load(ckpt) as z:
+        counter, done = int(z["counter"]), len(z["pose_stamps"])
+    # the last save of the cut run: 3 fused frames, after frame 2 or (had a
+    # frame been rejected) frame 3
+    if counter != 3 or not 3 <= done <= 4:
+        raise AssertionError(f"checkpoint holds counter {counter}, {done} poses")
+    return done, run_app(data, results, ["--pose-file", pose_file, "--save-sdf",
+                                         "--resume", ckpt, *extra])
+
+
+def phase_ablation_and_resume(data, n_frames, straight, straight_err):
+    """Through the Scan3D CLI on the golden dataset: the base-SDF ablation
+    with tracking; then grad-SDF checkpointed every 3 fused frames and cut
+    after frame 3, resumed from the checkpoint, and compared with the
+    uninterrupted run: from ground-truth poses with phase 5's, with
+    tracking with phase 4's (`straight`, its metrics)."""
+    import numpy as np
+    from gradient_sdf_tpu_torch.utils import tumio
+
+    results = os.path.join(WORK, "base_sdf")
+    reset_launch_counts()
+    m = run_app(data, results, ["--pose-file", "none", "--scan-type", "base-sdf"])
+    launches = launch_counts()
+    fused, n_faces, _ = check_outputs(m, results, launches, n_frames, cloud=False)
+    errs = rel_translation_errors(results, data)
+    if not max(errs) < BASE_SDF_ERR_LIMIT:
+        raise AssertionError(f"base-sdf relative translation errors {errs}")
+    track = [e["track_ms"] for e in m["frame_log"][1:]]
+    log(f"phase10 scan3d --scan-type base-sdf: {m['frames']} frames, {fused} "
+        f"fused (scatter F=2, merge_clear without gradients), "
+        f"{m['num_blocks_active']} blocks, {n_faces} faces, no cloud, kernel "
+        f"launches {launches}, max rel. translation error {max(errs) * 1e3:.3f} "
+        f"mm (grad-sdf in phase 4: {straight_err * 1e3:.3f} mm), track "
+        f"{min(track):.2f}-{max(track):.2f} ms")
+
+    cut_gt = os.path.join(WORK, "resume_gt")
+    done, m1 = cut_and_resume(data, cut_gt, "gt_poses.txt")
+    na, nb, frac, err = map_diff(os.path.join(WORK, "gt", "gradient_sdf"),
+                                 os.path.join(cut_gt, "gradient_sdf"))
+    if not (m1["frames"] == n_frames - done and frac >= RESUME_GT_SHARED_MIN
+            and err.max() <= RESUME_GT_DIST):
+        raise AssertionError(
+            f"resumed vs uninterrupted at ground-truth poses: {m1['frames']} "
+            f"frames, shared voxels {frac:.6f} ({na} / {nb}), dist max |err| "
+            f"{err.max() if len(err) else None}")
+    log(f"phase10 ground-truth poses, checkpoint after 3 fused frames, resumed for "
+        f"frames {done}-{n_frames - 1}: observed voxels {nb} vs {na} uninterrupted "
+        f"(phase 5), shared {frac:.6f} (>= {RESUME_GT_SHARED_MIN}), dist max |err| "
+        f"{err.max():.3g} m (<= {RESUME_GT_DIST})")
+
+    cut = os.path.join(WORK, "resume")
+    prof_dir = os.path.join(cut, "profile")
+    done, m2 = cut_and_resume(data, cut, "none", ("--profile", prof_dir))
+    # --profile: a Chrome trace of the resumed run's third frame, holding the
+    # card's kernels (the scatter kernel among them)
+    traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+    if m2["frames"] >= 3:
+        if len(traces) != 1:
+            raise AssertionError(f"--profile wrote {traces}")
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            trace = f.read()
+        if '"cat": "kernel"' not in trace or "scatter_add" not in trace:
+            raise AssertionError("the profile trace holds no device kernels")
+    want_invalid = [i for i in straight["invalid_frames"] if i >= done]
+    if m2["frames"] != n_frames - done or m2["invalid_frames"] != want_invalid:
+        raise AssertionError(f"resumed run: {m2['frames']} frames, invalid "
+                             f"{m2['invalid_frames']}")
+    a = tumio.read_trajectory(os.path.join(WORK, "track", "_poses.txt"))
+    b = tumio.read_trajectory(os.path.join(cut, "_poses.txt"))
+    if [e[0] for e in a] != [e[0] for e in b] or len(b) != n_frames:
+        raise AssertionError("resumed trajectory has other frames")
+
+    def pose_diff(p, q):
+        return max(max(np.abs(x[1] - y[1]).max(), np.abs(x[2] - y[2]).max())
+                   for x, y in zip(p, q))
+
+    pose_err = pose_diff(a, b)
+    twice = pose_diff(a, tumio.read_trajectory(
+        os.path.join(WORK, "warm", "_poses.txt")))
+    na, nb, frac, err = map_diff(os.path.join(WORK, "track", "gradient_sdf"),
+                                 os.path.join(cut, "gradient_sdf"))
+    p99 = float(np.quantile(err, 0.99)) if len(err) else float("inf")
+    tol = RESUME_POSE_FACTOR * max(twice, RESUME_POSE_FLOOR)
+    if not (pose_err <= tol and frac >= RESUME_SHARED_MIN and p99 <= tol):
+        raise AssertionError(
+            f"resumed vs uninterrupted: poses max |err| {pose_err}, dist p99 "
+            f"{p99} (tolerance {tol}; two uninterrupted runs differ by {twice}), "
+            f"shared voxels {frac:.5f} ({na} / {nb})")
+    log(f"phase10 tracking, checkpoint after 3 fused frames, cut after frame 3, "
+        f"resumed for frames {done}-{n_frames - 1}: poses vs the uninterrupted run "
+        f"max |err| {pose_err:.3g}, dist p99 |err| {p99:.3g} m (tolerance {tol:.3g} "
+        f"= {RESUME_POSE_FACTOR:g} x the larger of {RESUME_POSE_FLOOR} and what two "
+        f"uninterrupted runs differ by, {twice:.3g}), observed voxels {nb} vs {na}, "
+        f"shared {frac:.6f} (>= {RESUME_SHARED_MIN}), invalid frames "
+        f"{m2['invalid_frames']}; --profile trace {traces}")
+    return launches
+
+
 def main():
     import torch
 
@@ -741,10 +1078,11 @@ def main():
 
     data = os.path.join(WORK, "golden")
     n_frames = 6
+    # datasets are rendered on the card (make_synth's default device)
     make_synth.main(["--out", data, "--frames", str(n_frames), "--seed", "2",
                      "--width", "640", "--height", "480", "--arc-deg", "4",
-                     "--no-noise"])
-    launches = phase_app(data, n_frames)
+                     "--no-noise", "--device", "cuda"])
+    launches, straight, straight_err = phase_app(data, n_frames)
     phase_gt(data, n_frames)
 
     # PhotoBA: the JAX app test's protocol at full VGA width
@@ -752,17 +1090,27 @@ def main():
     ba_frames = 14
     make_synth.main(["--out", ba_data, "--frames", str(ba_frames), "--seed", "2",
                      "--width", "640", "--height", "480", "--arc-deg", "10",
-                     "--no-noise"])
+                     "--no-noise", "--device", "cuda"])
     ba_launches = phase_photoba(ba_data, ba_frames)
     phase_photoba_recovery()
     phase_ba_scale()
-    # each main path was counted from zero and launched both kernels
-    paths = {"phase 4 (scan3d)": launches, "phase 6 (photoba)": ba_launches}
-    for path, counts in paths.items():
-        if any(c <= 0 for c in counts.values()):
+    scene, kstats["march"] = phase_march()
+    render_launches = phase_render(scene)
+    del scene
+    torch.cuda.empty_cache()
+    base_launches = phase_ablation_and_resume(data, n_frames, straight,
+                                              straight_err)
+    # each main path was counted from zero and launched its kernels
+    paths = {"phase 4 (scan3d)": (launches, FUSION_KERNELS),
+             "phase 6 (photoba)": (ba_launches, FUSION_KERNELS),
+             "phase 9 (renders)": (render_launches, ("raycast_march",)),
+             "phase 10 (scan3d base-sdf)": (base_launches, FUSION_KERNELS)}
+    for path, (counts, kernels) in paths.items():
+        if any(counts[k] <= 0 for k in kernels):
             raise AssertionError(f"{path} launched no kernel: {counts}")
-    launches = {k: sum(c[k] for c in paths.values()) for k in launches}
-    counted = "phase 4 (scan3d tracking) + phase 6 (photoba)"
+    launches = {k: sum(c[k] for c, _ in paths.values()) for k in launches}
+    counted = ("phase 4 (scan3d tracking) + phase 6 (photoba) + phase 10 "
+               "(scan3d base-sdf: F=2, no gradients)")
 
     log(smi_line())
     log(json.dumps({"kernels": [{
@@ -783,6 +1131,14 @@ def main():
         "launches_counted_in": counted,
         "bound_by": "bytes",
         **kstats["merge"],
+    }, {
+        "name": "raycast_march",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/raycast_march.cu",
+        "replaces": "gradient_sdf_tpu/ops/raycast.py:178",
+        "launches": launches["raycast_march"],
+        "launches_counted_in": "phase 9 (render_depth_normal, four modes)",
+        **kstats["march"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ Port of `gradient_sdf_tpu/apps/make_synth.py` for the spheres world: writes
 layout `SynthLoader` reads. PNGs go through the package's stdlib codec.
 Noise is drawn from `numpy.random.default_rng(seed)`, so noisy datasets
 differ from the JAX package's; `--no-noise` datasets agree up to float
-rounding of the renderer.
+rounding of the renderer. Rendering runs on `--device` (default `cuda`,
+raising where there is no card); pass `cpu` where a dataset must come out
+the same on every machine.
 
 Usage:  python -m gradient_sdf_tpu_torch.apps.make_synth --out <dir> [--frames 90]
 """
@@ -21,6 +23,7 @@ import torch
 
 from ..data import synth
 from ..data.png import write_png
+from ..utils import device as device_mod
 from ..utils import se3, tumio
 
 # matplotlib's default color cycle, as used for sphere albedo in
@@ -72,7 +75,8 @@ def write_png8(path, img):
 
 def generate(out: str, frames: int = 90, seed: int = 0, width: int = 640,
              height: int = 480, noise: bool = True, arc_deg: float = None,
-             gray_texture: bool = False, loop: bool = False):
+             gray_texture: bool = False, loop: bool = False, device="cuda"):
+    dev = device_mod.require(device)
     # Kinect intrinsics, scaled when rendering below the native 640x480
     K = synth.KINECT_K.copy()
     K[0] *= width / 640.0
@@ -85,7 +89,7 @@ def generate(out: str, frames: int = 90, seed: int = 0, width: int = 640,
         os.makedirs(os.path.join(out, sub), exist_ok=True)
     np.savetxt(os.path.join(out, "intrinsics.txt"), K, fmt="%.6f")
 
-    world = synth.random_spheres(seed=seed)
+    world = synth.random_spheres(seed=seed, device=dev)
     poses = synth.orbit_poses(n=frames, radius=2.0, arc=np.deg2rad(arc_deg),
                               closed=loop)
     np.savetxt(
@@ -111,7 +115,7 @@ def generate(out: str, frames: int = 90, seed: int = 0, width: int = 640,
         write_png16(os.path.join(out, "depth", name), depth.cpu().numpy())
         write_png8(os.path.join(out, "rgb", name), color)
         write_png8(os.path.join(out, "albedo", name), color)
-    print(f"wrote {frames} frames to {out}")
+    print(f"wrote {frames} frames to {out} (rendered on {dev})")
 
 
 def build_parser():
@@ -130,6 +134,9 @@ def build_parser():
                    help="loop-closing trajectory: full orbit + sine height "
                         "ramp")
     p.add_argument("--world", choices=["spheres", "box"], default="spheres")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda; the run "
+                        "fails rather than fall back if it is missing)")
     return p
 
 
@@ -139,7 +146,8 @@ def main(argv=None):
         raise SystemExit("--world box: not yet ported to the PyTorch package "
                          "(use gradient_sdf_tpu.apps.make_synth)")
     generate(a.out, a.frames, a.seed, a.width, a.height, noise=not a.no_noise,
-             arc_deg=a.arc_deg, gray_texture=a.gray_texture, loop=a.loop)
+             arc_deg=a.arc_deg, gray_texture=a.gray_texture, loop=a.loop,
+             device=a.device)
 
 
 if __name__ == "__main__":

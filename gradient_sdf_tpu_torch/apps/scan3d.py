@@ -9,11 +9,17 @@ run GN tracking, fusing only converged frames (:256-266). Per-frame poses
 go to `<results>/_poses.txt` in TUM format (:267-280); teardown writes
 mesh + oriented point cloud PLYs and optional sparse SDF dumps (:288-311).
 
+`--scan-type base-sdf` runs the trilinear TSDF ablation (`PixelSdfMap`,
+trilinear tracking, no point cloud). `--checkpoint-every K` writes
+`<results>/checkpoint.npz` whenever the fused-frame counter is a multiple of
+K after a frame, and `--resume FILE` picks a run up from such a file (from
+either package). `--profile DIR` writes a `torch.profiler` Chrome trace of
+the third processed frame into DIR.
+
 The loop is synchronous and reference-exact: each frame's convergence and
 growth flags are read before the next frame starts, so `--merged-step` and
-`--sync-growth-checks` are accepted as no-ops. Not yet ported (exit with
-a message): `--scan-type base-sdf`, `--devices > 1`, `--resume`,
-`--checkpoint-every`, `--profile`.
+`--sync-growth-checks` are accepted as no-ops. Not yet ported (exits with
+a message): `--devices > 1`.
 
 Usage:  python -m gradient_sdf_tpu_torch.apps.scan3d --input <dir> [...]
 """
@@ -23,6 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 
@@ -33,6 +40,8 @@ from .. import config as cfg_mod
 from ..data import loaders
 from ..models import tracker as tracker_mod
 from ..models.grad_sdf import GradSdfMap
+from ..models.pixel_sdf import PixelSdfMap
+from ..utils import checkpoint as ckpt
 from ..utils import device as device_mod
 from ..utils import tumio
 from ..utils.timer import Timer
@@ -75,9 +84,11 @@ def build_parser():
     p.add_argument("--metrics-json", default=None,
                    help="optional path for per-run structured metrics")
     p.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
-                   default=0, help="(not yet ported)")
-    p.add_argument("--resume", default=None, help="(not yet ported)")
-    p.add_argument("--profile", default=None, help="(not yet ported)")
+                   default=0, help="checkpoint every N integrated frames (0=off)")
+    p.add_argument("--resume", default=None, help="checkpoint .npz to resume from")
+    p.add_argument("--profile", default=None,
+                   help="directory for a torch.profiler Chrome trace of the "
+                        "third processed frame")
     p.add_argument("--sync-growth-checks", dest="lagged_flags",
                    action="store_false",
                    help="no-op: the loop always resolves each frame's flags "
@@ -107,16 +118,8 @@ def build_parser():
 
 
 def _not_ported(args):
-    if args.scan_type != "grad-sdf":
-        return "--scan-type base-sdf"
     if args.devices > 1:
         return "--devices > 1"
-    if args.resume:
-        return "--resume"
-    if args.checkpoint_every:
-        return "--checkpoint-every"
-    if args.profile:
-        return "--profile"
     return None
 
 
@@ -164,7 +167,12 @@ def run_scan(args) -> dict:
     else:
         print("No GT poses are available!")
 
-    sdf_map = GradSdfMap(cfg, device=dev)
+    if args.scan_type == "grad-sdf":
+        sdf_map = GradSdfMap(cfg, device=dev)
+        track_mode = "grad"
+    else:
+        sdf_map = PixelSdfMap(cfg, device=dev)
+        track_mode = "trilinear"
     os.makedirs(args.results, exist_ok=True)
     pose_path = os.path.join(args.results, "_poses.txt")
     pose_entries = []
@@ -182,7 +190,31 @@ def run_scan(args) -> dict:
     tracker_set = False
     n_frames = 0
 
-    for frame in loader.frames(args.first, last):
+    first = args.first
+    resumed = False
+    if args.resume:
+        state = ckpt.load_state(args.resume, dev)
+        gc = state["grid_cfg"]
+        # the checkpoint's (possibly grown) geometry and voxel size win over
+        # the command line's; legacy files lack the voxel size
+        if math.isnan(gc.voxel_size):
+            gc = dataclasses.replace(gc, voxel_size=cfg.grid.voxel_size)
+        cfg = dataclasses.replace(cfg, grid=gc)
+        sdf_map.restore(state["grid"], gc, vis=state["vis"],
+                        counter=state["counter"])
+        resumed = state["counter"] > 0
+        pose_entries.extend(state["poses"])
+        if state["poses"]:
+            R_cur, t_cur = (on_dev(a) for a in state["poses"][-1][1:])
+            R_pp, t_pp = ((on_dev(a) for a in state["poses"][-2][1:])
+                          if len(state["poses"]) >= 2 else (R_cur, t_cur))
+        # poses are recorded per processed frame (fused or not): they, not
+        # the fusion counter, say where to pick up
+        first = args.first + (len(state["poses"]) or state["counter"])
+        print(f"Resumed at frame {first} ({state['counter']} frames integrated)")
+    ckpt_path = os.path.join(args.results, "checkpoint.npz")
+
+    for frame in loader.frames(first, last):
         i = frame.index
         if not tracker_set:
             # dense tracking by default (sampling=1, the reference optimize()
@@ -199,13 +231,23 @@ def run_scan(args) -> dict:
                 sdf_map.cfg = dataclasses.replace(sdf_map.cfg, fusion=new_f)
             tracker_set = True
         print(f"Working on frame: {i}")
+        # the third processed frame is traced: lazy initialisation is behind it
+        prof = None
+        if args.profile and n_frames == 2:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
         t_frame = time.perf_counter()
         depth = on_dev(frame.depth)
         entry = {"frame": i, "track_ms": None, "fuse_ms": None, "gn_iters": None}
-        if gt_mode or i == args.first:
+        fresh = i == first and not resumed   # the frame that starts the map
+        if gt_mode or fresh:
             if gt_mode:
-                # the first processed frame takes GT pose 0, as in the JAX app
-                g = gt[0] if i == args.first else gt[i]
+                # the first frame of a fresh run takes GT pose 0, as in the
+                # JAX app
+                g = gt[0] if fresh else gt[i]
                 R_cur, t_cur = on_dev(g[1]), on_dev(g[2])
             T.tic()
             sdf_map.update(depth, K, (R_cur, t_cur))
@@ -221,7 +263,8 @@ def run_scan(args) -> dict:
             # grid/fusion config come from the map: growth changes them
             res = tracker_mod.track_frame(
                 sdf_map.grid, depth, K, R_init, t_init,
-                sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker)
+                sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker,
+                mode=track_mode)
             _sync(dev)
             entry["track_ms"] = T.toc("Point optimization") * 1e3
             entry["gn_iters"] = res.num_iters
@@ -239,6 +282,17 @@ def run_scan(args) -> dict:
         pose_entries.append((frame.timestamp, R_cur.cpu().numpy(),
                              t_cur.cpu().numpy()))
         n_frames += 1
+        if prof is not None:
+            _sync(dev)
+            prof.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(args.profile, f"frame_{i}.trace.json"))
+        k = args.checkpoint_every
+        if k and sdf_map.counter % k == 0:
+            ckpt.save_state(ckpt_path, sdf_map.grid, vis=sdf_map.vis,
+                            counter=sdf_map.counter, poses=pose_entries,
+                            grid_cfg=sdf_map.cfg.grid)
 
     tumio.write_trajectory(pose_path, pose_entries)
 
@@ -247,9 +301,10 @@ def run_scan(args) -> dict:
     if not sdf_map.extract_mesh(prefix + "_mesh_final.ply"):
         print("Could not save mesh!")
     T.toc("Save mesh to disk")
-    T.tic()
-    sdf_map.extract_pc(prefix + "_cloud_final.ply")
-    T.toc("Save point cloud to disk")
+    if track_mode == "grad":   # the baseline map has no oriented cloud
+        T.tic()
+        sdf_map.extract_pc(prefix + "_cloud_final.ply")
+        T.toc("Save point cloud to disk")
     if args.save_sdf:
         T.tic()
         sdf_map.save_sdf(prefix)

@@ -70,6 +70,16 @@ class GradSdfMap:
         H, W = depth.shape
         self.ensure_cache(np.asarray(K), W, H)
         R, t = self._tensor(pose[0]), self._tensor(pose[1])
+        self._fuse(depth, R, t, kf_slot)
+        self.counter += 1
+        overflow, oob = torch.stack([self.grid.overflow.to(torch.int32),
+                                     self.grid.oob_samples]).tolist()
+        if overflow:
+            self._grow()
+        if oob > 0:
+            self._grow_directory()
+
+    def _fuse(self, depth, R, t, kf_slot):
         gcfg, fcfg = self.cfg.grid, self.cfg.fusion
         if self.vis is not None:
             self.grid, self.vis = fusion.fuse_frame(
@@ -78,13 +88,25 @@ class GradSdfMap:
         else:
             self.grid = fusion.fuse_frame(self.grid, depth, self.cache, R, t,
                                           gcfg, fcfg, acc=self.acc)
-        self.counter += 1
-        overflow, oob = torch.stack([self.grid.overflow.to(torch.int32),
-                                     self.grid.oob_samples]).tolist()
-        if overflow:
-            self._grow()
-        if oob > 0:
-            self._grow_directory()
+
+    def restore(self, grid, grid_cfg=None, vis=None, counter: int = 0):
+        """Take over a saved state (`utils/checkpoint.load_state`): the grid,
+        its possibly grown geometry, the visibility words and the frame
+        counter. Everything sized to the grid is rebuilt from the restored
+        geometry: the accumulator (scratch, never saved) would otherwise
+        keep the row count of the grid this map was created with."""
+        self.grid = grid
+        if grid_cfg is not None:
+            self.cfg = dataclasses.replace(self.cfg, grid=grid_cfg)
+        if (grid.num_blocks != self.cfg.grid.num_blocks
+                or grid.directory.numel() != self.cfg.grid.dir_dim**3):
+            raise ValueError(
+                f"restored grid ({grid.num_blocks} blocks, directory of "
+                f"{grid.directory.numel()}) does not fit {self.cfg.grid}")
+        self.acc = fusion.new_accumulator(self.grid)
+        if vis is not None and self.vis is not None:
+            self.vis = vis
+        self.counter = counter
 
     def _grow(self):
         """Episodic host-side capacity doubling on overflow (vg.grow)."""
@@ -158,34 +180,36 @@ class GradSdfMap:
         (`MapGradPixelSdf.cpp:222-296`): grid_info + `lin_idx value` lines in
         files _sdf_d/_sdf_weight/_sdf_n0/_sdf_n1/_sdf_n2."""
         vox, dist, weight, grad = self.occupied()
-        occupied = weight > 0
-        vox, dist, weight, grad = (
-            vox[occupied], dist[occupied], weight[occupied], grad[occupied]
-        )
-        if vox.size == 0:
-            return False
-        vmin = vox.min(axis=0)
-        vmax = vox.max(axis=0)
-        dim = vmax - vmin + 1
-        lin = (
-            dim[0] * dim[1] * (vox[:, 2] - vmin[2])
-            + dim[0] * (vox[:, 1] - vmin[1])
-            + (vox[:, 0] - vmin[0])
-        )
-        vs = self.cfg.grid.voxel_size
-        with open(filename + "_grid_info.txt", "w") as f:
-            f.write(f"voxel size: {vs}\n")
-            f.write(f"voxel dim: {dim[0]} {dim[1]} {dim[2]}\n")
-            f.write(f"voxel min: {vmin[0]} {vmin[1]} {vmin[2]}\n")
-            f.write(f"voxel max: {vmax[0]} {vmax[1]} {vmax[2]}\n")
-        for suffix, values in [
-            ("_sdf_d.txt", dist),
-            ("_sdf_weight.txt", weight),
-            ("_sdf_n0.txt", grad[:, 0]),
-            ("_sdf_n1.txt", grad[:, 1]),
-            ("_sdf_n2.txt", grad[:, 2]),
-        ]:
-            with open(filename + suffix, "w") as f:
-                for li, v in zip(lin, values):
-                    f.write(f"{li} {v}\n")
-        return True
+        return write_sdf_dump(
+            filename, self.cfg.grid.voxel_size, vox, weight,
+            [("_sdf_d.txt", dist), ("_sdf_weight.txt", weight),
+             ("_sdf_n0.txt", grad[:, 0]), ("_sdf_n1.txt", grad[:, 1]),
+             ("_sdf_n2.txt", grad[:, 2])])
+
+
+def write_sdf_dump(filename: str, voxel_size: float, vox, weight, columns):
+    """Write `<filename>_grid_info.txt` and one `lin_idx value` file per
+    (suffix, values) of `columns`, over the observed voxels (weight > 0) of
+    the per-voxel host arrays. False (nothing written) on an empty map."""
+    occupied = weight > 0
+    vox = vox[occupied]
+    if vox.size == 0:
+        return False
+    vmin = vox.min(axis=0)
+    vmax = vox.max(axis=0)
+    dim = vmax - vmin + 1
+    lin = (
+        dim[0] * dim[1] * (vox[:, 2] - vmin[2])
+        + dim[0] * (vox[:, 1] - vmin[1])
+        + (vox[:, 0] - vmin[0])
+    )
+    with open(filename + "_grid_info.txt", "w") as f:
+        f.write(f"voxel size: {voxel_size}\n")
+        f.write(f"voxel dim: {dim[0]} {dim[1]} {dim[2]}\n")
+        f.write(f"voxel min: {vmin[0]} {vmin[1]} {vmin[2]}\n")
+        f.write(f"voxel max: {vmax[0]} {vmax[1]} {vmax[2]}\n")
+    for suffix, values in columns:
+        with open(filename + suffix, "w") as f:
+            for li, v in zip(lin, values[occupied]):
+                f.write(f"{li} {v}\n")
+    return True

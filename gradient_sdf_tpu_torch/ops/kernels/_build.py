@@ -27,6 +27,10 @@ LIB_NAME = "libgsdf_kernels.so"
 LOG_NAME = "build.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags for single sources. The march decides which voxel a probe reads by
+# rounding o + s*d: it is built without fused multiply-adds, so that it and
+# its plain PyTorch version round alike (see the note in the source).
+SOURCE_FLAGS = {"raycast_march.cu": ["-fmad=false"]}
 
 _lib = None
 build_seconds = None   # wall time of this process's build (0.0 if reused)
@@ -60,6 +64,7 @@ def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
         h.update(os.path.basename(s).encode())
+        h.update(" ".join(SOURCE_FLAGS.get(os.path.basename(s), [])).encode())
         with open(s, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -77,6 +82,14 @@ def _declare(lib):
     lib.gsdf_merge_clear_f32.argtypes = (
         [vp] * 7 + [i64, i64, ctypes.c_int, vp])
     lib.gsdf_merge_clear_f32.restype = ctypes.c_int
+    # origins, dirs, s0, s_end, directory, coarse_occ, dist, weight, found,
+    # s_mid, s_star, stats and touched (or both null); n, num_blocks; dir_dim,
+    # block_shape, coarse_factor; eight float32 constants; max_steps,
+    # bisect_steps; stream
+    lib.gsdf_raycast_march_f32.argtypes = (
+        [vp] * 13 + [i64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
+        + [ctypes.c_int] * 2 + [vp])
+    lib.gsdf_raycast_march_f32.restype = ctypes.c_int
 
 
 def _compile(sources, out_dir, target) -> str:
@@ -88,7 +101,8 @@ def _compile(sources, out_dir, target) -> str:
     for src in sources:
         obj = os.path.join(
             out_dir, os.path.splitext(os.path.basename(src))[0] + tag + ".o")
-        cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+        cmd = ([nvcc] + NVCC_FLAGS + SOURCE_FLAGS.get(os.path.basename(src), [])
+               + ["-c", "-o", obj, src])
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = ""

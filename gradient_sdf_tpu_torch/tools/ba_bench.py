@@ -100,17 +100,23 @@ SYNC_KEYS = ("aten::_local_scalar_dense", "aten::item", "cudaStreamSynchronize",
 
 
 def profile_alternation(problem, state, gcfg, pcfg):
-    """One alternation under `torch.profiler`: kernels launched, device-busy
-    ms and share of the wall time, host synchronizations, top kernels."""
+    """One alternation under `torch.profiler` (see `profile_call`)."""
+    return profile_call(lambda: alternation(problem, state, gcfg, pcfg))
+
+
+def profile_call(fn, top: int = 8):
+    """One `fn()` under `torch.profiler`, after a warm-up call: kernels
+    launched, device-busy ms and share of the wall time, host
+    synchronizations, the `top` kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    alternation(problem, state, gcfg, pcfg)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        alternation(problem, state, gcfg, pcfg)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows, syncs, launches = [], {}, 0
@@ -132,7 +138,7 @@ def profile_alternation(problem, state, gcfg, pcfg):
         "device_events": sum(r[1] for r in rows),
         "cudaLaunchKernel_calls": launches,
         "host_syncs": syncs,
-        "top": [{"ms": r[0], "count": r[1], "name": r[2][:70]} for r in rows[:8]],
+        "top": [{"ms": r[0], "count": r[1], "name": r[2][:70]} for r in rows[:top]],
     }
 
 

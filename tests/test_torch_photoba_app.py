@@ -38,7 +38,7 @@ APP_ARGS = ["--data-type", "synth", "--voxel-size", "0.02", "--trunc", "5"]
 def synth_dir(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("photoba_data"))
     tmake.generate(out, frames=14, seed=2, width=320, height=240,
-                   noise=False, arc_deg=10.0)
+                   noise=False, arc_deg=10.0, device="cpu")
     return out
 
 
@@ -172,7 +172,8 @@ def test_photoba_gt_poses_matches_jax_app(tmp_path):
     with their flat colours every residual is zero and BA has nothing to do."""
     synth_dir = str(tmp_path / "textured")
     tmake.generate(synth_dir, frames=8, seed=2, width=320, height=240,
-                   noise=False, arc_deg=10.0 * 8 / 14, gray_texture=True)
+                   noise=False, arc_deg=10.0 * 8 / 14, gray_texture=True,
+                   device="cpu")
     gt = tumio.read_trajectory(os.path.join(synth_dir, "gt_poses.txt"))
     rng = np.random.RandomState(3)
     init = [(ts, R, t + (rng.randn(3) * 0.003).astype(np.float32))

@@ -172,7 +172,8 @@ def test_png_codec_rejects_interlaced_and_non_png(tmp_path):
 def dataset(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("synth"))
     tmake.main(["--out", out, "--frames", "4", "--seed", "2", "--width", "320",
-                "--height", "240", "--arc-deg", "4", "--no-noise"])
+                "--height", "240", "--arc-deg", "4", "--no-noise",
+                "--device", "cpu"])
     return out
 
 
@@ -348,9 +349,8 @@ def test_scan3d_device_cuda_raises_without_cuda(dataset, tmp_path):
                     "--pose-file", "gt_poses.txt"] + APP_ARGS)
 
 
-@pytest.mark.parametrize("flags", [["--scan-type", "base-sdf"], ["--devices", "2"],
-                                   ["--resume", "x.npz"], ["--checkpoint-every", "2"],
-                                   ["--profile", "trace"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"],
+                                   ["--devices", "4", "--block-parallel", "2"]])
 def test_scan3d_unported_flags_exit(dataset, tmp_path, flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         tscan.main(["--input", dataset, "--results", str(tmp_path),
