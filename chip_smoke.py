@@ -756,11 +756,97 @@ def phase_ba_scale():
         log(f"  phase7 top kernel: {r['ms']:.3f} ms x{r['count']} {r['name']}")
 
 
+def same_march(got, want, what):
+    """Kernel result `got` against the plain version's `want`: every ray's
+    found, s_mid, s_star (and, for a counting launch, probe and sector
+    counts and the sector marks) equal bit for bit."""
+    import torch
+
+    differ = ((got.found != want.found) | (got.s_mid != want.s_mid)
+              | (got.s_star != want.s_star))
+    if got.stats is not None:
+        differ |= (got.stats != want.stats).any(dim=1)
+    marks = int((got.touched != want.touched).sum()) if got.touched is not None else 0
+    if int(differ.sum()) > MARCH_RAYS_DIFFERING or marks > MARCH_RAYS_DIFFERING:
+        raise AssertionError(f"raycast_march {what}: {int(differ.sum())} of "
+                             f"{differ.numel()} rays and {marks} sector marks "
+                             f"differ from the plain version; want bit equality")
+    if not bool(torch.equal(got.found, want.found)):
+        raise AssertionError(f"raycast_march {what}: found differs")
+
+
+def march_shapes_check(scene):
+    """The shift-and-mask instances for block shapes 2, 4, 16 and 32 and the
+    runtime-divisor instance (6) on grids fused at those shapes from the
+    render scene's world (4 frames at 320x240, 1 cm voxels, the same voxel
+    capacity): counting and timed launch, rays in their order and tiled,
+    against the plain version. Returns one note per shape."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.ops import fusion, normals, raycast
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
+    from gradient_sdf_tpu_torch.tools import raycast_bench as rb
+
+    _, gcfg, fcfg, world, poses = scene
+    dev = torch.device("cuda")
+    notes = []
+
+    def check_all(args, gcfg_, width, what):
+        want = rm.raycast_march_reference(*args, gcfg_, fcfg, stats=True)
+        for w in (None, width):
+            for stats in (True, False):
+                got = rm.raycast_march(*args, gcfg_, fcfg, stats=stats, width=w)
+                torch.cuda.synchronize()
+                same_march(got, want, f"{what}, {'tiled' if w else 'flat'}, "
+                           f"{'counting' if stats else 'timed'} instance")
+        return int(want.found.sum()), float(want.stats[:, 0].float().mean())
+
+    w, h = rb.W // 2, rb.H // 2
+    K = np.array(synth.KINECT_K, dtype=np.float32)
+    K[:2] *= 0.5
+    cache = normals.build_cache(w, h, K, fcfg.normal_window, dev)
+    for b in (2, 4, 16, 32, 6):
+        g_cfg = dataclasses.replace(gcfg, block_shape=b,
+                                    num_blocks=gcfg.num_blocks * 512 // b**3,
+                                    dir_dim=256 if b <= 4 else 128)
+        g = vg.create(g_cfg, dev)
+        acc = fusion.new_accumulator(g)
+        for R, t in poses[::4]:
+            depth = synth.render_depth(world, R, t, K, w, h)
+            g = fusion.fuse_frame(g, depth, cache, torch.as_tensor(R, device=dev),
+                                  torch.as_tensor(t, device=dev), g_cfg, fcfg, acc=acc)
+        if bool(g.overflow):
+            raise AssertionError(f"block shape {b}: the grid overflowed")
+        R, t = poses[4]
+        o, d, _ = raycast.camera_rays(K, R, t, w, h, device=dev)
+        n = o.shape[0]
+        args = (o.contiguous(), d.contiguous(), torch.full((n,), rb.S_MIN, device=dev),
+                torch.full((n,), rb.S_MAX, device=dev), g.directory, g.coarse_occ,
+                g.dist, g.weight)
+        found, probes = check_all(args, g_cfg, w, f"block shape {b}")
+        if not 0.1 * n < found < 0.9 * n:
+            raise AssertionError(f"block shape {b}: march found {found} of {n} rays")
+        notes.append(f"block shape {b} ({int(g.num_active)} blocks): {found} of {n} "
+                     f"found, {probes:.2f} probes per ray, 0 differ")
+        del g, acc
+    return notes
+
+
 def phase_march():
     """`raycast_march` vs `raycast_march_reference` on the card on every ray
-    of the render scene's pose 4, unwindowed and inside the raster windows;
-    then both timed. Returns (scene, the unwindowed pass's numbers)."""
+    of the render scene's pose 4, unwindowed and inside the raster windows,
+    with the rays in their order and in the pixel tiles a render uses: both
+    instances (counting and timed) bit for bit; then the kernel timed, with
+    its machine code, the SM clock and the issue slots per warp-probe; then
+    every other instance (`march_shapes_check`). Returns (scene, the numbers
+    of the tiled unwindowed pass: the render's full-resolution launch)."""
     import torch
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
     from gradient_sdf_tpu_torch.tools import raycast_bench as rb
 
     t0 = time.perf_counter()
@@ -770,36 +856,63 @@ def phase_march():
     log(f"phase8 render scene: 16 frames 640x480 fused at 1 cm into "
         f"{int(grid.num_active)} of {grid.num_blocks} blocks in "
         f"{time.perf_counter() - t0:.2f} s")
+    code = [c for c in rb.march_code(_build.lib_path, _build.build_log, rm.THREADS)
+            if not c["stats"]]
+    main_code = next(c for c in code if c["log2_block"] == 3)
+    args = rb.march_args(grid, gcfg, *poses[4], False)
+    mhz = rb.sm_clock_while(lambda: rm.raycast_march(*args, gcfg, fcfg, width=rb.W))
+    log(f"phase8 march code: block shape 8 instance {main_code['registers']} "
+        f"registers ({main_code['warps_per_sm']} warps per SM at "
+        f"{rm.THREADS} threads), {main_code['sass']} SASS instructions, "
+        f"{main_code['sass_loop']} in the march loop; all timed instances: "
+        + ", ".join(f"log2 {c['log2_block']}: {c['registers']} reg, loop "
+                    f"{c['sass_loop']}" for c in code)
+        + f"; SM clock while it runs {mhz[0]:.0f}-{mhz[2]:.0f} MHz")
     out = {}
     for windowed in (False, True):
-        r = rb.march_check_and_time(grid, gcfg, fcfg, *poses[4], windowed)
-        if (r["rays_differing"] > MARCH_RAYS_DIFFERING
-                or r["touched_differing"] > MARCH_RAYS_DIFFERING):
-            raise AssertionError(
-                f"raycast_march vs plain, windowed={windowed}: "
-                f"{r['rays_differing']} of {r['rays']} rays differ "
-                f"({r['found_differing']} in found), max |s_star err| "
-                f"{r['max_abs_err']}, {r['touched_differing']} sector marks "
-                f"differ; want bit equality")
-        if not 0.1 * r["rays"] < r["found"] < 0.9 * r["rays"]:
-            raise AssertionError(f"march found {r['found']} of {r['rays']} rays")
-        log(f"phase8 raycast_march vs plain, "
-            f"{'raster windows' if windowed else 'unwindowed'}: {r['rays']} rays, "
-            f"{r['found']} found, {r['rays_differing']} rays differ (found, s_mid, "
-            f"s_star, probe counts; bit equality), max_abs_err {r['max_abs_err']:.3g}; "
-            f"probes per ray mean {r['probes_mean']:.2f} p99 {r['probes_p99']:.0f} "
-            f"max {r['probes_max']}, {r['sectors']} gathers of a 32 B sector, "
-            f"{r['distinct_sectors']} distinct sectors; kernel "
-            f"{r['ms']:.4f} ms ({r['gathered_gb_per_s']:.0f} GB/s gathered), plain "
-            f"{r['plain_ms']:.1f} ms (one call, host clock), bound_ms "
-            f"{r['bound_ms']:.5f} by {r['bound_by']} (bytes, ray state + each "
-            f"distinct sector once: {r['bytes_bound_ms']:.5f}; operations of the "
-            f"probes made: {r['ops_bound_ms']:.5f}), warp lanes in use "
-            f"{r['warp_lane_use']:.3f} (mean over warps of the slowest ray: "
-            f"{r['warp_max_probes_mean']:.1f} probes), library_ms null")
-        out[windowed] = r
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return scene, {k: out[False][k] for k in keys}
+        for width in (None, rb.W):
+            r = rb.march_check_and_time(grid, gcfg, fcfg, *poses[4], windowed,
+                                        width, plain=width is None)
+            if (r["rays_differing"] > MARCH_RAYS_DIFFERING
+                    or r["touched_differing"] > MARCH_RAYS_DIFFERING):
+                raise AssertionError(
+                    f"raycast_march vs plain, windowed={windowed} width={width}: "
+                    f"{r['rays_differing']} of {r['rays']} rays differ "
+                    f"({r['found_differing']} in found), max |s_star err| "
+                    f"{r['max_abs_err']}, {r['touched_differing']} sector marks "
+                    f"differ; want bit equality")
+            if not 0.1 * r["rays"] < r["found"] < 0.9 * r["rays"]:
+                raise AssertionError(f"march found {r['found']} of {r['rays']} rays")
+            slots = rb.issue_slots_per_warp_probe(r["ms"], r["warp_probes"],
+                                                  mhz[1] * 1e6)
+            plain = (f"plain {r['plain_ms']:.1f} ms (one call, host clock)"
+                     if r["plain_ms"] is not None else "plain as above")
+            log(f"phase8 raycast_march vs plain, "
+                f"{'raster windows' if windowed else 'unwindowed'}, "
+                f"{'8x4 pixel tiles' if width else 'rays in order'}: {r['rays']} rays, "
+                f"{r['found']} found, {r['rays_differing']} rays differ (found, s_mid, "
+                f"s_star, probe counts; counting and timed instance; bit equality), "
+                f"max_abs_err {r['max_abs_err']:.3g}; probes per ray mean "
+                f"{r['probes_mean']:.2f} p99 {r['probes_p99']:.0f} max "
+                f"{r['probes_max']}, {r['sectors']} gathers of a 32 B sector, "
+                f"{r['distinct_sectors']} distinct sectors; kernel {r['ms']:.4f} ms "
+                f"({r['gathered_gb_per_s']:.0f} GB/s gathered), {plain}, bound_ms "
+                f"{r['bound_ms']:.5f} by {r['bound_by']} (bytes, ray state + each "
+                f"distinct sector once: {r['bytes_bound_ms']:.5f}; operations of the "
+                f"probes made at the issue rates: {r['ops_bound_ms']:.5f}; "
+                f"{r['bound_ms'] / r['ms']:.1%} reached), warp lanes in use "
+                f"{r['warp_lane_use']:.3f}, {r['warp_probes']:.0f} warp-probes, "
+                f"{slots:.0f} issue slots per warp-probe at {mhz[1]:.0f} MHz "
+                f"(the loop is {main_code['sass_loop']} SASS instructions), "
+                f"library_ms null")
+            out[windowed, width] = r
+    for note in march_shapes_check(scene):
+        log(f"phase8 every instance vs plain: {note}")
+    keys = ("max_abs_err", "ms", "bound_ms", "bound_by", "library_ms")
+    stats = {k: out[False, rb.W][k] for k in keys}
+    stats["plain_ms"] = out[False, None]["plain_ms"]
+    stats["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    return scene, stats
 
 
 def same_render(got, want, what, voxel):
@@ -1138,6 +1251,8 @@ def main():
         "replaces": "gradient_sdf_tpu/ops/raycast.py:178",
         "launches": launches["raycast_march"],
         "launches_counted_in": "phase 9 (render_depth_normal, four modes)",
+        "timed_on": "phase 8: the render scene's 307,200 full-resolution rays, "
+                    "unwindowed, in 8x4 pixel tiles",
         **kstats["march"],
     }]}))
     log(json.dumps({"ok": True, "device": {

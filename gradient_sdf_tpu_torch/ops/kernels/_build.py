@@ -83,11 +83,11 @@ def _declare(lib):
         [vp] * 7 + [i64, i64, ctypes.c_int, vp])
     lib.gsdf_merge_clear_f32.restype = ctypes.c_int
     # origins, dirs, s0, s_end, directory, coarse_occ, dist, weight, found,
-    # s_mid, s_star, stats and touched (or both null); n, num_blocks; dir_dim,
-    # block_shape, coarse_factor; eight float32 constants; max_steps,
+    # s_mid, s_star, stats and touched (or both null); n, num_blocks; width,
+    # dir_dim, block_shape, coarse_factor; ten float32 constants; max_steps,
     # bisect_steps; stream
     lib.gsdf_raycast_march_f32.argtypes = (
-        [vp] * 13 + [i64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
+        [vp] * 13 + [i64] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 10
         + [ctypes.c_int] * 2 + [vp])
     lib.gsdf_raycast_march_f32.restype = ctypes.c_int
 

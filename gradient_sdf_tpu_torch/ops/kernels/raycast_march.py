@@ -17,8 +17,9 @@ The JAX package has no TPU kernel for this: it is a `lax.while_loop` that
 XLA compiles, carried over compacted buffers because such a loop costs its
 full width until its slowest ray ends. In eager PyTorch the same loop is
 ~100 small launches and a host sync per step, so on the card it is the
-hand-written kernel of `csrc/raycast_march.cu` (one thread per ray; see the
-note there). On a CUDA tensor the wrapper launches that kernel or raises;
+hand-written kernel of `csrc/raycast_march.cu` (one thread per ray, rays of
+an image in 8 x 4 pixel tiles per warp; see the note there). On a CUDA
+tensor the wrapper launches that kernel or raises;
 on a CPU tensor it takes `raycast_march_reference`, the plain version: the
 same arithmetic in the same order on whole tensors, over the rays still
 alive at each step. The kernel is built without fused multiply-adds, and
@@ -47,6 +48,15 @@ from .. import voxel_grid as vg
 # reference do not count
 launch_count = 0
 
+# block shapes with an instance of their own in the kernel (shifts and masks;
+# `pick` in csrc/raycast_march.cu); every other shape takes runtime divisors
+POW2_BLOCK_SHAPES = (2, 4, 8, 16, 32)
+# a warp's tile of an image's rays, and the warp tiles across a block
+WARP_TILE = (8, 4)
+TILES_X = 4
+THREADS = 128
+INT32_LIMIT = 2**31
+
 
 def reset_launch_count():
     global launch_count
@@ -74,16 +84,39 @@ class _Consts(NamedTuple):
     half_step: float
     half_vox: float
     block_m: float
+    inv_block_m: float
     coarse_m: float
+    inv_coarse_m: float
 
 
 def _consts(gcfg: GridConfig, fcfg: FusionConfig) -> _Consts:
     vs = gcfg.voxel_size
     step_min = 0.25 * vs
     block_m = gcfg.block_shape * vs
+    coarse_m = block_m * vg.COARSE_FACTOR
     return _Consts(*(float(np.float32(x)) for x in (
         vs, 1.0 / vs, fcfg.trunc_voxels * vs, step_min, 0.5 * step_min,
-        0.5 * vs, block_m, block_m * vg.COARSE_FACTOR)))
+        0.5 * vs, block_m, 1.0 / block_m, coarse_m, 1.0 / coarse_m)))
+
+
+def ray_order(n: int, width: Optional[int]) -> torch.Tensor:
+    """The ray each thread of the kernel's launch takes, -1 for an idle one,
+    in thread order (so that rows of 32 are warps): the rays in their order
+    for width None, else 8 x 4 pixel tiles of a row-major image of that
+    width, four tiles across a block of `THREADS` threads."""
+    if width is None:
+        return torch.cat([torch.arange(n), torch.full((-n % 32,), -1)])
+    (tw, th), height = WARP_TILE, n // width
+    bw, bh = tw * TILES_X, th * (THREADS // 32 // TILES_X)
+    lane = torch.arange(THREADS)
+    warp, lane = lane // 32, lane % 32
+    x0 = (warp % TILES_X) * tw + lane % tw
+    y0 = (warp // TILES_X) * th + lane // tw
+    by, bx = torch.meshgrid(torch.arange(-(-height // bh)),
+                            torch.arange(-(-width // bw)), indexing="ij")
+    x = (bx.reshape(-1, 1) * bw + x0).reshape(-1)
+    y = (by.reshape(-1, 1) * bh + y0).reshape(-1)
+    return torch.where((x < width) & (y < height), y * width + x, -1)
 
 
 def sector_offsets(gcfg: GridConfig, num_blocks: int):
@@ -98,9 +131,19 @@ def sector_offsets(gcfg: GridConfig, num_blocks: int):
     return tuple(offs)
 
 
-def _check(origins, dirs, s0, s_end, directory, coarse_occ, dist, weight, gcfg):
+def _check(origins, dirs, s0, s_end, directory, coarse_occ, dist, weight, gcfg,
+           width=None):
     n = origins.shape[0]
     dev = origins.device
+    # the kernel computes directory keys and voxel indices in int32
+    if gcfg.dir_dim**3 >= INT32_LIMIT:
+        raise ValueError(f"dir_dim {gcfg.dir_dim}: {gcfg.dir_dim}^3 directory "
+                         f"cells exceed the kernel's int32 index")
+    if dist.shape[0] * gcfg.voxels_per_block >= INT32_LIMIT:
+        raise ValueError(f"{dist.shape[0]} blocks of {gcfg.voxels_per_block} "
+                         f"voxels exceed the kernel's int32 index")
+    if width is not None and (width <= 0 or n % width):
+        raise ValueError(f"width {width}: {n} rays are no image of that width")
     want = [("origins", origins, (n, 3), torch.float32),
             ("dirs", dirs, (n, 3), torch.float32),
             ("s0", s0, (n,), torch.float32),
@@ -157,21 +200,28 @@ def _probe(directory, coarse_occ, dist, weight, px, py, pz, gcfg, c: _Consts,
     return (torch.where(observed, d, 0.0), observed, present, coarse, sectors)
 
 
-def _dda_axis(p, d, cell, half_vox):
-    b = torch.floor((p + half_vox) / cell)
-    bound = torch.where(d > 0, (b + 1.0) * cell, b * cell)
-    return torch.where(torch.abs(d) > 1e-12, (bound - p - half_vox) / d,
-                       float("inf"))
+def _ray_terms(d):
+    """Per ray and axis, what the DDA needs of the direction: 1/d (NaN where
+    |d| <= 1e-12: that axis has no next plane) and 1 where d > 0, else 0."""
+    r = torch.where(torch.abs(d) > 1e-12, torch.reciprocal(d), float("nan"))
+    return r, (d > 0).to(d.dtype)
 
 
-def _dda(px, py, pz, dx, dy, dz, cell, c: _Consts):
+def _dda_axis(p, r, u, cell, inv_cell, half_vox):
+    b = torch.floor((p + half_vox) * inv_cell)
+    bound = (b + u) * cell
+    return (bound - p - half_vox) * r
+
+
+def _dda(px, py, pz, r, u, cell, inv_cell, c: _Consts):
     """Distance along each ray to its next plane of a lattice of pitch
     `cell`. Voxel i spans [i vs - vs/2, i vs + vs/2), so the planes sit at
-    k cell - vs/2. Non-positive distances become inf, then the result is
+    k cell - vs/2. `fmin` drops the NaN of an axis the ray runs parallel
+    to; non-positive distances (and all-NaN) become inf, then the result is
     nudged past the plane by half a minimum step."""
-    out = _dda_axis(px, dx, cell, c.half_vox)
-    out = torch.minimum(out, _dda_axis(py, dy, cell, c.half_vox))
-    out = torch.minimum(out, _dda_axis(pz, dz, cell, c.half_vox))
+    out = _dda_axis(px, r[:, 0], u[:, 0], cell, inv_cell, c.half_vox)
+    out = torch.fmin(out, _dda_axis(py, r[:, 1], u[:, 1], cell, inv_cell, c.half_vox))
+    out = torch.fmin(out, _dda_axis(pz, r[:, 2], u[:, 2], cell, inv_cell, c.half_vox))
     out = torch.where(out > 0, out, float("inf"))
     return torch.clamp(out + c.half_step, min=c.step_min)
 
@@ -198,6 +248,7 @@ def raycast_march_reference(origins, dirs, s0, s_end, directory, coarse_occ,
                            dtype=torch.uint8, device=dev) if stats else None)
 
     # state of the alive rays only, compacted as rays end
+    r_all, u_all = _ray_terms(dirs)
     idx = torch.nonzero(s0 <= s_end).reshape(-1)
     s = s0[idx]
     s_prev, v_prev = s.clone(), torch.zeros_like(s)
@@ -205,7 +256,7 @@ def raycast_march_reference(origins, dirs, s0, s_end, directory, coarse_occ,
     for _ in range(max_steps):
         if idx.numel() == 0:
             break
-        o, d = origins[idx], dirs[idx]
+        o, d, r, u = origins[idx], dirs[idx], r_all[idx], u_all[idx]
         dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
         px, py, pz = o[:, 0] + s * dx, o[:, 1] + s * dy, o[:, 2] + s * dz
         phi, observed, present, coarse, sectors = _probe(*grid, px, py, pz, gcfg, c,
@@ -225,12 +276,13 @@ def raycast_march_reference(origins, dirs, s0, s_end, directory, coarse_occ,
         step = torch.where(
             observed,
             torch.maximum(torch.clamp(-phi, max=c.trunc),
-                          _dda(px, py, pz, dx, dy, dz, c.vs, c)),
+                          _dda(px, py, pz, r, u, c.vs, c.inv_vs, c)),
             torch.where(
                 present, c.trunc,
                 torch.where(coarse,
-                            _dda(px, py, pz, dx, dy, dz, c.block_m, c),
-                            _dda(px, py, pz, dx, dy, dz, c.coarse_m, c))))
+                            _dda(px, py, pz, r, u, c.block_m, c.inv_block_m, c),
+                            _dda(px, py, pz, r, u, c.coarse_m, c.inv_coarse_m,
+                                 c))))
         s_new = s + step
         alive = ~crossed & (s_new <= s_end[idx])
         idx = idx[alive]
@@ -282,25 +334,29 @@ def raycast_march(origins: torch.Tensor, dirs: torch.Tensor, s0: torch.Tensor,
                   coarse_occ: torch.Tensor, dist: torch.Tensor,
                   weight: torch.Tensor, gcfg: GridConfig, fcfg: FusionConfig, *,
                   max_steps: int = 128, bisect_steps: int = 2,
-                  stats: bool = False) -> MarchResult:
+                  stats: bool = False, width: Optional[int] = None) -> MarchResult:
     """March N rays: origins, dirs f32 [N, 3] (unit directions), windows s0,
     s_end f32 [N], against a grid's `directory`, `coarse_occ`, `dist` and
     `weight`. All tensors contiguous and on one device. With `stats` the
     result also carries each ray's probe count and the number of 32-byte
     sectors its probes gathered, and `touched`, the distinct sectors of the
     four grid arrays that the launch read (a counting instance of the
-    kernel; time the one without). On CUDA the kernel launches on the current
-    stream without synchronizing."""
+    kernel; time the one without). `width`: the rays are the pixels of a
+    row-major image that wide, and the kernel gives each warp an 8 x 4 tile
+    of them (`ray_order`); no result depends on it. On CUDA the kernel
+    launches on the current stream without synchronizing."""
     args = (origins, dirs, s0, s_end, directory, coarse_occ, dist, weight)
     if origins.device.type == "cpu":
+        _check(*args, gcfg, width)
         return raycast_march_reference(*args, gcfg, fcfg, max_steps=max_steps,
                                        bisect_steps=bisect_steps, stats=stats)
     if origins.device.type != "cuda":
         raise RuntimeError(f"raycast_march: no kernel for {origins.device}")
-    _check(*args, gcfg)
     from . import _build
 
+    _check(*args, gcfg, width)
     lib = _build.load()
+    origins, dist = args[0], args[6]
     n, dev = origins.shape[0], origins.device
     found = torch.empty(n, dtype=torch.bool, device=dev)   # one byte, 0 or 1
     s_mid = torch.empty(n, dtype=torch.float32, device=dev)
@@ -311,18 +367,19 @@ def raycast_march(origins: torch.Tensor, dirs: torch.Tensor, s0: torch.Tensor,
     if n == 0:
         return MarchResult(found, s_mid, s_star, count, touched)
     c = _consts(gcfg, fcfg)
-    global launch_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gsdf_raycast_march_f32(
             *(a.detach().data_ptr() for a in args), found.data_ptr(),
             s_mid.data_ptr(), s_star.data_ptr(),
             count.data_ptr() if stats else None,
-            touched.data_ptr() if stats else None, n, dist.shape[0], gcfg.dir_dim,
-            gcfg.block_shape, vg.COARSE_FACTOR, c.vs, c.inv_vs, c.trunc,
-            c.step_min, c.half_step, c.half_vox, c.block_m, c.coarse_m,
-            int(max_steps), int(bisect_steps), stream)
+            touched.data_ptr() if stats else None, n, dist.shape[0], width or 0,
+            gcfg.dir_dim, gcfg.block_shape, vg.COARSE_FACTOR, c.vs, c.inv_vs,
+            c.trunc, c.step_min, c.half_step, c.half_vox, c.block_m,
+            c.inv_block_m, c.coarse_m, c.inv_coarse_m, int(max_steps),
+            int(bisect_steps), stream)
     if rc != 0:
         raise RuntimeError(f"raycast_march kernel launch failed: CUDA error {rc}")
+    global launch_count
     launch_count += 1
     return MarchResult(found, s_mid, s_star, count, touched)

@@ -20,7 +20,8 @@ independent of the march's path); `bisect_steps` halvings tighten the
 bracket first, so that windowed and unwindowed marches bracket the same
 voxel pair. All of that is one launch of `ops/kernels/raycast_march` per
 `raycast` call: the hand-written CUDA kernel on the card, its plain version
-on the CPU.
+on the CPU. `render_depth_normal` tells the kernel its passes' image width,
+so that each warp marches a compact tile of pixels.
 
 What the JAX module carries besides and this one does not: the burst and
 straggler rounds, the capacity ladder, the compacted refinement and the
@@ -95,6 +96,7 @@ def raycast(
     burst_steps: int = 12,
     compact_divisors: tuple = (64,),
     refine: bool = True,
+    width: Optional[int] = None,
 ) -> RaycastResult:
     """Trace N rays; returns the first zero crossing along each.
 
@@ -103,7 +105,9 @@ def raycast(
     s_lo > s_hi is empty: the ray is a miss and is never probed.
     `burst_steps` and `compact_divisors` are ignored (module note). With
     `refine=False` the depth is the crossing bracket's midpoint and the
-    normals are zero (the prior pass's form)."""
+    normals are zero (the prior pass's form). `width`: the rays are a
+    row-major image that wide, which the kernel marches in pixel tiles
+    (same results); None keeps their order."""
     n, dev = origins.shape[0], origins.device
     f32 = dict(dtype=torch.float32, device=dev)
     s0 = (torch.full((n,), s_min, **f32) if s_lo is None
@@ -114,7 +118,7 @@ def raycast(
         origins.detach().contiguous(), dirs.detach().contiguous(),
         s0.contiguous(), s_end.contiguous(), grid.directory, grid.coarse_occ,
         grid.dist.detach(), grid.weight.detach(), gcfg, fcfg,
-        max_steps=max_steps, bisect_steps=bisect_steps)
+        max_steps=max_steps, bisect_steps=bisect_steps, width=width)
     found = res.found
     zeros3 = torch.zeros((n, 3), **f32)
     if not refine:
@@ -432,7 +436,7 @@ def render_depth_normal(
         rw_lo, rw_hi = block_raster_windows(grid, K, R, t, width, height, gcfg)
         res_c = raycast(grid, coarse(origins), coarse(dirs), gcfg, fcfg,
                         s_min=s_min, s_max=s_max, s_lo=coarse(rw_lo),
-                        s_hi=coarse(rw_hi), refine=False, **kw)
+                        s_hi=coarse(rw_hi), refine=False, width=wc, **kw)
         mn, mx, anyhit = _neighborhood_minmax(res_c.depth.reshape(hc, wc),
                                               res_c.hit.reshape(hc, wc))
         lo_c, hi_c = windows(anyhit, mn, mx, prior_miss_skip)
@@ -443,8 +447,8 @@ def render_depth_normal(
 
         s_lo, s_hi = fine(lo_c), fine(hi_c)
 
-    res = raycast(grid, origins, dirs, gcfg, fcfg,
-                  s_min=s_min, s_max=s_max, s_lo=s_lo, s_hi=s_hi, **kw)
+    res = raycast(grid, origins, dirs, gcfg, fcfg, s_min=s_min, s_max=s_max,
+                  s_lo=s_lo, s_hi=s_hi, width=width, **kw)
     depth = (res.depth * inv_hnorm).reshape(height, width)
     normal = res.normal.reshape(height, width, 3)
     hit = res.hit.reshape(height, width)

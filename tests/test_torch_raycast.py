@@ -501,6 +501,19 @@ def test_march_rejects_what_the_kernel_does_not_take(fused):
         rm.raycast_march(o, d, s, s[:-1], *grid, GCFG, FCFG)
     with pytest.raises(ValueError, match="directory"):
         rm.raycast_march(o, d, s, s, grid[0][:-1], *grid[1:], GCFG, FCFG)
+    # the kernel's int32 keys and voxel indices: a directory of 1291^3 cells
+    # or 2^22 blocks of 512 voxels is refused before any array is read;
+    # MAX_DIR_DIM's 512^3 passes that check (and meets the shape check)
+    for dim, match in ((1291, "int32"), (tvg.MAX_DIR_DIM, "directory")):
+        big = GridConfig(voxel_size=VS, num_blocks=GCFG.num_blocks, dir_dim=dim)
+        with pytest.raises(ValueError, match=match):
+            rm.raycast_march(o, d, s, s, *grid, big, FCFG)
+    many = torch.zeros(1, GCFG.voxels_per_block).expand(2**22, -1)
+    with pytest.raises(ValueError, match="int32"):
+        rm.raycast_march(o, d, s, s, *grid[:2], many, many, GCFG, FCFG)
+    # tiles need the rays to be a whole image
+    with pytest.raises(ValueError, match="width"):
+        rm.raycast_march(o, d, s, s, *grid, GCFG, FCFG, width=W + 1)
 
 
 def test_render_on_a_map_and_on_the_base_sdf_map(fused):
@@ -534,23 +547,64 @@ def test_render_on_a_map_and_on_the_base_sdf_map(fused):
 
 @pytest.mark.gpu
 def test_cuda_march_kernel_matches_reference_bit_for_bit(fused):
+    """Both instances of the kernel (counting and plain), with the rays in
+    their order and in pixel tiles, unwindowed and in raster windows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     _, poses, _, tg = fused
     args = [a.cuda() for a in _march_args(tg, poses)]
     n = args[0].shape[0]
-    s0 = torch.full((n,), 0.3, device="cuda")
-    s_end = torch.full((n,), 2.5, device="cuda")
+    lo, hi = trc.block_raster_windows(tg, K, *poses[4], W, H, GCFG)
+    windows = {"unwindowed": (torch.full((n,), 0.3), torch.full((n,), 2.5)),
+               "raster": (lo.clamp(min=0.3), hi.clamp(max=2.5))}
     rm.reset_launch_count()
-    got = rm.raycast_march(*args[:2], s0, s_end, *args[2:], GCFG, FCFG, stats=True)
-    torch.cuda.synchronize()
-    assert rm.launch_count == 1
-    want = rm.raycast_march_reference(*args[:2], s0, s_end, *args[2:], GCFG, FCFG,
-                                      stats=True)
-    assert rm.launch_count == 1
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert int(got.found.sum()) > 500
+    for name, (s0, s_end) in windows.items():
+        s0, s_end = s0.cuda().contiguous(), s_end.cuda().contiguous()
+        call = (*args[:2], s0, s_end, *args[2:], GCFG, FCFG)
+        want = rm.raycast_march_reference(*call, stats=True)
+        for width in (None, W):
+            got = rm.raycast_march(*call, stats=True, width=width)
+            fast = rm.raycast_march(*call, width=width)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (name, width)
+            for a, b in zip(fast[:3], want[:3]):
+                assert torch.equal(a, b), (name, width)
+            assert fast.stats is None and int(got.found.sum()) > 500
+    assert rm.launch_count == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [4, 6, 16])
+def test_cuda_march_at_other_block_shapes_matches_reference(fused, b):
+    """The shift-and-mask instances for 4 and 16 and the runtime-divisor
+    instance (6) on a grid the port fuses on the CPU, both orders."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from gradient_sdf_tpu_torch.ops import fusion, normals
+
+    world, poses, _, _ = fused
+    gcfg = GridConfig(voxel_size=VS, block_shape=b, num_blocks=4096 * 512 // b**3,
+                      dir_dim=256)
+    cache = normals.build_cache(W, H, K, FCFG.normal_window, "cpu")
+    g = tvg.create(gcfg, "cpu")
+    for R, t in poses[:4]:
+        depth = torch.from_numpy(np.array(jsynth.render_depth(
+            world, jnp.asarray(R), jnp.asarray(t), K, W, H)))
+        g = fusion.fuse_frame(g, depth, cache, torch.as_tensor(R), torch.as_tensor(t),
+                              gcfg, FCFG)
+    o, d, _ = trc.camera_rays(K, *poses[3], W, H)
+    n = o.shape[0]
+    call = [a.cuda().contiguous() for a in (o, d, torch.full((n,), 0.3),
+                                            torch.full((n,), 2.5), g.directory,
+                                            g.coarse_occ, g.dist, g.weight)]
+    want = rm.raycast_march_reference(*call, gcfg, FCFG, stats=True)
+    for width in (None, W):
+        got = rm.raycast_march(*call, gcfg, FCFG, stats=True, width=width)
+        torch.cuda.synchronize()
+        for a, c in zip(got, want):
+            assert torch.equal(a, c), width
+    assert int(want.found.sum()) > 500
 
 
 @pytest.mark.gpu
