@@ -15,17 +15,24 @@ and the high-resolution exports; phase 6), the same app on textured
 spheres from ground-truth poses with BA started from perturbed poses
 (phase 6b: BA has to win energy and pose error back), and one BA
 alternation at F = 30 keyframes x V = 102400 voxels x 640x480 images, card
-against CPU (phase 7). Every phase raises on failure, which ends the run
-non-zero. Needs one CUDA card; fails at once without one. Scratch files go
-to `smoke_out/` under the checkout.
+against CPU (phase 7). Phase 4b times grad-mode tracking with and without
+the packed rows; phases 8-9 hold the march kernel to its plain version and
+render; phase 10 runs the base-SDF ablation and checkpoint/resume. Phase 11
+checks the host PNG and JPEG decoders built here; phase 12 the box world at
+VGA (make_synth, Scan3D at 1 cm, the gradient analysis on the card, a
+render's march bit for bit); phase 13 Scan3D through the Printed3D and
+Redwood loaders; phase 14 a 60-frame noisy sequence, grad-SDF gated on ATE.
+Every phase raises on failure, which ends the run non-zero. Needs one CUDA
+card; fails at once without one. Scratch files go to `smoke_out/` under the
+checkout.
 
 Output: one line of numbers per phase; then the card's name and power
 limit (`nvidia-smi`), a JSON line `{"kernels": [...]}` with each kernel's
-launch count on the main paths (phase 4's Scan3D run, phase 6's PhotoBA
-run, phase 9's renders and phase 10's base-SDF run, each counted from
-zero), its largest error against the plain version, its time beside the plain version's, the byte bound and (for the
-scatter) the bare `index_add_` as the library yardstick, on golden frame
-5's real samples and, for the march, on the render scene's rays; and last
+launch count on the main paths (each counted from zero, and named in
+`launches_counted_in`), its largest error against the plain version, its
+time beside the plain version's, the bound and (for the scatter) the bare
+`index_add_` as the library yardstick, on golden frame 5's real samples
+and, for the march, on the render scene's rays; and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -99,6 +106,20 @@ RESUME_POSE_FACTOR = 3.0
 RESUME_POSE_FLOOR = 5e-4        # m, and rotation matrix entries
 RESUME_SHARED_MIN = 0.99        # tracked runs: share of observed voxels
 BASE_SDF_ERR_LIMIT = 0.02       # m, relative translation error
+# phase 4b: grad-mode tracking with and without packed rows queries the
+# same fields with the same operations; the two poses may part by at most a
+# skipped stopping step (the resume gate's floor)
+PACK_POSE_TOL = RESUME_POSE_FLOOR
+# phase 12: the stored gradients of the VGA box map against the analytic box
+# normals, first bin (|D| < one voxel): the JAX package's box stage measured a
+# 0.22 degree median at VGA (PARITY.md)
+BOX_STORED_MEDIAN_DEG = 1.0
+# phase 14: the noisy sequence, at the JAX test's bounds
+# (tests/test_long_sequence.py): ATE RMSE and unconverged frames
+NOISY_ATE_LIMIT = 0.03          # m
+NOISY_FRAMES = 60
+NOISY_UNCONVERGED_MAX = NOISY_FRAMES // 2
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 PHOTOBA_ARTIFACTS = ["_poses.txt", "mesh_lr.ply", "cloud_lr.ply",
                      "selected_frame_poses_before_optimization.txt",
                      "coarse_BA_poses_optimized.txt",
@@ -470,12 +491,12 @@ def rel_translation_errors(results, data):
             for i in range(len(est))]
 
 
-def run_app(data, results, extra):
+def run_app(data, results, extra, data_type="synth", voxel_size="0.02"):
     from gradient_sdf_tpu_torch.apps import scan3d
 
     metrics_path = os.path.join(results, "metrics.json")
-    scan3d.main(["--input", data, "--results", results, "--data-type", "synth",
-                 "--voxel-size", "0.02", "--trunc", "5", "--device", "cuda",
+    scan3d.main(["--input", data, "--results", results, "--data-type", data_type,
+                 "--voxel-size", voxel_size, "--trunc", "5", "--device", "cuda",
                  "--metrics-json", metrics_path] + extra)
     with open(metrics_path) as f:
         return json.load(f)
@@ -1054,6 +1075,15 @@ def map_diff(prefix_a, prefix_b):
     return len(da), len(db), frac, err
 
 
+def pose_diff(p, q):
+    """Largest |difference| of rotation entries and translations between two
+    trajectories, pose by pose in order."""
+    import numpy as np
+
+    return max(max(np.abs(x[1] - y[1]).max(), np.abs(x[2] - y[2]).max())
+               for x, y in zip(p, q))
+
+
 def cut_and_resume(data, results, pose_file, extra=()):
     """Scan3D through frame 3 with a checkpoint every 3 fused frames, then a
     second run resumed from that file. Returns (poses in the checkpoint, the
@@ -1135,10 +1165,6 @@ def phase_ablation_and_resume(data, n_frames, straight, straight_err):
     if [e[0] for e in a] != [e[0] for e in b] or len(b) != n_frames:
         raise AssertionError("resumed trajectory has other frames")
 
-    def pose_diff(p, q):
-        return max(max(np.abs(x[1] - y[1]).max(), np.abs(x[2] - y[2]).max())
-                   for x, y in zip(p, q))
-
     pose_err = pose_diff(a, b)
     twice = pose_diff(a, tumio.read_trajectory(
         os.path.join(WORK, "warm", "_poses.txt")))
@@ -1159,6 +1185,342 @@ def phase_ablation_and_resume(data, n_frames, straight, straight_err):
         f"shared {frac:.6f} (>= {RESUME_SHARED_MIN}), invalid frames "
         f"{m2['invalid_frames']}; --profile trace {traces}")
     return launches
+
+
+def synth_cfg(voxel_size):
+    """The Scan3D app's configuration for `--data-type synth --voxel-size
+    <voxel_size> --trunc 5`."""
+    import dataclasses
+    from gradient_sdf_tpu_torch import config as cfg_mod
+
+    cfg = cfg_mod.preset("synth")
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, voxel_size=voxel_size),
+        fusion=dataclasses.replace(cfg.fusion, trunc_voxels=5.0))
+
+
+def phase_pack(data, n_frames):
+    """Phase 4b: grad-mode tracking of golden frames 1-5 with and without
+    the packed 32-byte rows (`TrackerConfig.packed_row_gather`), in turns
+    (packed, unpacked, unpacked, packed) against the same map, which is fused
+    from the packed run's pose as the app does."""
+    import dataclasses
+
+    import torch
+    from gradient_sdf_tpu_torch.data import loaders
+    from gradient_sdf_tpu_torch.models import tracker
+    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+
+    dev = torch.device("cuda")
+    cfg = synth_cfg(0.02)
+    loader = loaders.make_loader("synth", data)
+    K = loader.load_intrinsics()
+    m = GradSdfMap(cfg, device=dev)
+    R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    ms = {True: [], False: []}
+    worst = 0.0
+    for f in loader.frames(0, n_frames):
+        depth = torch.as_tensor(f.depth, device=dev)
+        if f.index == 0:
+            m.update(depth, K, (R, t))
+            continue
+        res, times = {}, {True: [], False: []}
+        for packed in (True, False, False, True):
+            tcfg = dataclasses.replace(cfg.tracker, packed_row_gather=packed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[packed] = tracker.track_frame(m.grid, depth, K, R, t, m.cfg.grid,
+                                              m.cfg.fusion, tcfg)
+            torch.cuda.synchronize()
+            times[packed].append((time.perf_counter() - t0) * 1e3)
+        a, b = res[True], res[False]
+        diff = max(float((a.R - b.R).abs().max()), float((a.t - b.t).abs().max()))
+        if a.converged != b.converged or not diff <= PACK_POSE_TOL:
+            raise AssertionError(f"frame {f.index}: packed rows converged "
+                                 f"{a.converged} vs {b.converged}, poses "
+                                 f"differ by {diff}")
+        worst = max(worst, diff)
+        for k in (True, False):
+            ms[k].extend(times[k])
+        log(f"  phase4b frame {f.index}: track_ms packed rows "
+            f"{times[True][0]:.2f} / {times[True][1]:.2f}, without "
+            f"{times[False][0]:.2f} / {times[False][1]:.2f}; GN iters "
+            f"{a.num_iters} / {b.num_iters}")
+        R, t = a.R, a.t
+        if a.converged:
+            m.update(depth, K, (R, t))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"phase4b track_ms on golden frames 1-{n_frames - 1}, in turns: packed "
+        f"rows (the default) mean {mean[True]:.2f} ms, without (query.tsdf_grad) "
+        f"mean {mean[False]:.2f} ms; poses differ by at most {worst:.3g} "
+        f"(limit {PACK_POSE_TOL})")
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock ms of `reps` calls of `fn` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def phase_codecs():
+    """Phase 11: the host decoders built on this machine. PNG: 640x480
+    images whose rows cycle through all five filters, 8-bit RGB and 16-bit
+    grey, read by `read_png` (native unfilter) and by `read_png` over the
+    plain Python unfilter, equal to each other and to the image, with the
+    ms of each. JPEG: the committed fixtures equal to PIL's stored decode."""
+    import numpy as np
+    from gradient_sdf_tpu_torch.data import jpeg, png
+
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:480, 0:640]
+    rgb = ((np.stack([x * 0.37 + y * 0.11 + 60 * k for k in range(3)], -1)
+            + rng.integers(0, 12, (480, 640, 3))) % 256).astype(np.uint8)
+    depth, _, _ = golden_frame()
+    grey16 = np.round(depth * 1000.0).astype(np.uint16)
+    grey16 += rng.integers(0, 3, grey16.shape).astype(np.uint16)
+    filters = np.arange(480) % 5
+    notes = []
+    for name, img in (("8-bit RGB", rgb), ("16-bit grey", grey16)):
+        path = os.path.join(WORK, "codec.png")
+        png.write_png(path, img, filters=filters)
+        got = png.read_png(path)
+        native_ms = host_ms(lambda: png.read_png(path))
+        native = png.unfilter
+        png.unfilter = png._unfilter     # read_png over the plain version
+        try:
+            plain = png.read_png(path)
+            plain_ms = host_ms(lambda: png.read_png(path), reps=3)
+        finally:
+            png.unfilter = native
+        if not (np.array_equal(got, img) and np.array_equal(plain, img)):
+            raise AssertionError(f"PNG {name}: read_png differs from the image")
+        notes.append(f"{name} {native_ms:.2f} ms (plain unfilter {plain_ms:.1f} ms)")
+    with np.load(os.path.join(JPEG_FIXTURES, "pil_decodes.npz")) as z:
+        stored = {k: z[k] for k in z.files}
+    for name, want in sorted(stored.items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        got = jpeg.read_jpeg(path)
+        differ = int((got != want).sum()) if got.shape == want.shape else -1
+        if differ:
+            raise AssertionError(f"JPEG {name}: {differ} samples differ from PIL's")
+        notes.append(f"{name} {'x'.join(map(str, want.shape))} "
+                     f"{host_ms(lambda: jpeg.read_jpeg(path)):.2f} ms, 0 samples "
+                     f"differ from PIL's")
+    log("phase11 codecs, decode ms per 640x480 image (host clock, median of 5; "
+        "PNG rows cycle through filters 0-4): " + "; ".join(notes))
+
+
+def box_map(data, n_frames, voxel_size):
+    """The box dataset fused from its ground-truth poses on the card, as
+    `scan3d --pose-file gt_poses.txt` fuses it: (map, poses, intrinsics)."""
+    import torch
+    from gradient_sdf_tpu_torch.data import loaders
+    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+
+    dev = torch.device("cuda")
+    loader = loaders.make_loader("synth", data)
+    K = loader.load_intrinsics()
+    gt = loader.load_poses("gt_poses.txt")
+    m = GradSdfMap(synth_cfg(voxel_size), device=dev)
+    for f in loader.frames(0, n_frames):
+        m.update(torch.as_tensor(f.depth, device=dev), K,
+                 tuple(torch.as_tensor(a, device=dev) for a in gt[f.index][1:]))
+    return m, gt, K
+
+
+def phase_box(n_frames=6):
+    """Phase 12: the box world at VGA. make_synth --world box on the card;
+    Scan3D from ground-truth poses at 1 cm with --save-sdf; the gradient
+    analysis on the card (stored gradients gated against the analytic box
+    normals and against central differences); Scan3D with tracking on the
+    same frames (printed, not gated: neither the reference nor the JAX
+    package converges at 1e-3 on this scene, PARITY.md); then the march
+    kernel against its plain version on every ray of a render of that map."""
+    import numpy as np
+    import torch
+    from gradient_sdf_tpu_torch.apps import analyze, make_synth
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.ops import raycast
+    from gradient_sdf_tpu_torch.tools import raycast_bench as rb
+
+    data = os.path.join(WORK, "box")
+    make_synth.main(["--out", data, "--frames", str(n_frames), "--seed", "2",
+                     "--width", "640", "--height", "480", "--arc-deg", "4",
+                     "--no-noise", "--world", "box", "--device", "cuda"])
+    results = os.path.join(WORK, "box_gt")
+    reset_launch_counts()
+    m = run_app(data, results, ["--pose-file", "gt_poses.txt", "--save-sdf"],
+                voxel_size="0.01")
+    gt_launches = launch_counts()
+    fused, n_faces, n_pts = check_outputs(m, results, gt_launches, n_frames)
+    t0 = time.perf_counter()
+    res = analyze.main(["--sdf-prefix", os.path.join(results, "gradient_sdf"),
+                        "--boxes", os.path.join(data, "boxes.txt"), "--device",
+                        "cuda", "--json", os.path.join(results, "analysis.json")])
+    analysis_s = time.perf_counter() - t0
+    stored, central = res["stored"][0], res["central"][0]
+    if not (stored["count"] > 1000 and stored["median"] < BOX_STORED_MEDIAN_DEG
+            and stored["median"] < central.get("median", float("inf"))):
+        raise AssertionError(f"box analysis, first bin: stored {stored}, "
+                             f"central {central}")
+    log(f"phase12 box world 640x480, {n_frames} frames, GT poses at 1 cm: {fused} "
+        f"fused, {m['num_blocks_active']} blocks, {n_faces} faces, {n_pts} cloud "
+        f"points, kernel launches {gt_launches}; analyze --boxes on the card "
+        f"{analysis_s * 1e3:.0f} ms (dump parse included), first bin "
+        f"|D| < {stored['bin'][1] * 1e3:.0f} mm: stored median "
+        f"{stored['median']:.3f} deg over {stored['count']} voxels (limit "
+        f"{BOX_STORED_MEDIAN_DEG}), central FD "
+        f"{central.get('median', float('nan')):.3f}, forward "
+        f"{res['forward'][0].get('median', float('nan')):.3f}, backward "
+        f"{res['backward'][0].get('median', float('nan')):.3f} deg")
+
+    track = os.path.join(WORK, "box_track")
+    reset_launch_counts()
+    mt = run_app(data, track, ["--pose-file", "none"], voxel_size="0.01")
+    track_launches = launch_counts()
+    errs = rel_translation_errors(track, data)
+    log(f"phase12 box world with tracking (not gated): invalid frames "
+        f"{mt['invalid_frames']}, relative translation errors "
+        f"{[round(e * 1e3, 2) for e in errs]} mm, kernel launches {track_launches}")
+
+    bm, gt, K = box_map(data, n_frames, 0.01)
+    gcfg, fcfg = bm.cfg.grid, bm.cfg.fusion
+    R, t = gt[n_frames // 2][1:]
+    world = synth.default_boxes(seed=2, device=torch.device("cuda"))
+    reset_launch_counts()
+    depth, _, hit = rb.render(bm.grid, gcfg, fcfg, R, t, prior_stride=0)
+    torch.cuda.synchronize()
+    render_launches = launch_counts()
+    truth = synth.render_depth_boxes(world, R, t, K, rb.W, rb.H)
+    both = hit & (truth > 0)
+    med = float((depth - truth).abs()[both].median())
+    # fusion drops a pixel seen at more than 60 degrees from its normal
+    # (`view_angle_cos_sq`): most of the floor, here. The render is held to
+    # the analytic pixels that pass that gate.
+    o, dirs, inv_hnorm = raycast.camera_rays(K, R, t, rb.W, rb.H,
+                                             device=truth.device)
+    _, normal = synth.box_sdf(world, o + dirs * (truth.reshape(-1)
+                                                 / inv_hnorm)[:, None])
+    seen = ((dirs * normal).sum(-1) ** 2 >= fcfg.view_angle_cos_sq).reshape(
+        truth.shape) & (truth > 0)
+    if not (int(both.sum()) > 0.9 * int(seen.sum()) and med < gcfg.voxel_size):
+        raise AssertionError(f"box render: {int(both.sum())} of "
+                             f"{int((truth > 0).sum())} analytic hits "
+                             f"({int(seen.sum())} within fusion's view angle), "
+                             f"median |err| {med}")
+    r = rb.march_check_and_time(bm.grid, gcfg, fcfg, R, t, False, rb.W)
+    if r["rays_differing"] or r["touched_differing"]:
+        raise AssertionError(f"box render: {r['rays_differing']} of {r['rays']} "
+                             f"rays and {r['touched_differing']} sector marks "
+                             f"differ from the plain march")
+    log(f"phase12 box render (no prior) of the GT map from frame "
+        f"{n_frames // 2}'s pose: {int(both.sum())} of {int((truth > 0).sum())} "
+        f"analytic hits ({int(seen.sum())} within fusion's view angle), "
+        f"median |depth err| {med * 1e3:.3f} mm; raycast_march "
+        f"vs plain, unwindowed, 8x4 pixel tiles: {r['rays']} rays, {r['found']} "
+        f"found, 0 rays and 0 sector marks differ (bit equality); probes per "
+        f"ray mean {r['probes_mean']:.2f} p99 {r['probes_p99']:.0f} max "
+        f"{r['probes_max']}, warp lanes in use {r['warp_lane_use']:.3f}, "
+        f"{r['distinct_sectors']} distinct sectors; kernel {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.1f} ms (host clock), bound_ms "
+        f"{r['bound_ms']:.5f} by {r['bound_by']} (bytes "
+        f"{r['bytes_bound_ms']:.5f}, march_ops_bound_ms {r['ops_bound_ms']:.5f}; "
+        f"{r['bound_ms'] / r['ms']:.1%} reached)")
+    return {"phase 12 (box scan3d GT poses)": (gt_launches, FUSION_KERNELS),
+            "phase 12 (box scan3d tracking)": (track_launches, FUSION_KERNELS),
+            "phase 12 (box render)": (render_launches, ("raycast_march",))}
+
+
+def phase_loaders(data, n_frames):
+    """Phase 13: phase 4's golden dataset laid out as a Printed3D folder
+    (the PNGs renamed) and as a Redwood one (the depth PNGs, and the
+    committed 4:2:0 JPEG as every frame's colour), tracked by Scan3D through
+    those loaders on the card; the poses must equal phase 4's, frame by
+    frame, within phase 10's resume gate (3x what two uninterrupted runs
+    differ by, at least 5e-4)."""
+    from gradient_sdf_tpu_torch.utils import tumio
+
+    src = os.path.join(data, "{}", "{:03d}.png")
+    layouts = {
+        "printed": [(src.format("depth", i + 1), f"depth_{i:06d}.png")
+                    for i in range(n_frames)]
+        + [(src.format("rgb", i + 1), f"color_{i:06d}.png") for i in range(n_frames)],
+        "rw": [(src.format("depth", i + 1), f"depth/{i:05d}.png")
+               for i in range(n_frames)]
+        + [(os.path.join(JPEG_FIXTURES, "golden_420.jpg"), f"rgb/{i:05d}.jpg")
+           for i in range(n_frames)],
+    }
+    straight = tumio.read_trajectory(os.path.join(WORK, "track", "_poses.txt"))
+    twice = pose_diff(straight, tumio.read_trajectory(
+        os.path.join(WORK, "warm", "_poses.txt")))
+    tol = RESUME_POSE_FACTOR * max(twice, RESUME_POSE_FLOOR)
+    paths = {}
+    for data_type, files in layouts.items():
+        root = os.path.join(WORK, f"layout_{data_type}")
+        for a, b in files + [(os.path.join(data, "intrinsics.txt"), "intrinsics.txt")]:
+            os.makedirs(os.path.dirname(os.path.join(root, b)), exist_ok=True)
+            shutil.copy(a, os.path.join(root, b))
+        results = os.path.join(WORK, f"loader_{data_type}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m = run_app(root, results, ["--pose-file", "none"], data_type=data_type)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        fused, _, _ = check_outputs(m, results, launches, n_frames)
+        poses = tumio.read_trajectory(os.path.join(results, "_poses.txt"))
+        err = pose_diff(poses, straight)
+        if len(poses) != n_frames or not err <= tol:
+            raise AssertionError(f"--data-type {data_type}: {len(poses)} poses, "
+                                 f"max |err| vs phase 4 {err} (tolerance {tol})")
+        log(f"phase13 scan3d --data-type {data_type} on the golden frames: "
+            f"{fused} fused, stamps {poses[0][0]}..{poses[-1][0]}, poses vs phase 4 "
+            f"max |err| {err:.3g} (tolerance {tol:.3g}; two phase-4 runs differ "
+            f"by {twice:.3g}), kernel launches {launches}, app wall {wall:.2f} s")
+        paths[f"phase 13 (scan3d --data-type {data_type})"] = (launches,
+                                                               FUSION_KERNELS)
+    return paths
+
+
+def phase_noisy():
+    """Phase 14: make_synth with Kinect noise, 60 frames at 640x480 over a
+    120 degree arc (2 degrees per frame, tests/test_long_sequence.py's
+    protocol), tracked by Scan3D with --eval-gt, grad-SDF gated at the JAX
+    test's bounds, base-SDF measured."""
+    from gradient_sdf_tpu_torch.apps import make_synth
+
+    data = os.path.join(WORK, "noisy")
+    make_synth.main(["--out", data, "--frames", str(NOISY_FRAMES), "--seed", "2",
+                     "--width", "640", "--height", "480", "--arc-deg", "120",
+                     "--device", "cuda"])
+    out = {}
+    paths = {}
+    for scan_type in ("grad-sdf", "base-sdf"):
+        results = os.path.join(WORK, f"noisy_{scan_type}")
+        reset_launch_counts()
+        m = run_app(data, results, ["--pose-file", "none", "--eval-gt",
+                                    "gt_poses.txt", "--scan-type", scan_type])
+        launches = launch_counts()
+        fused, _, _ = check_outputs(dict(m, invalid_frames=[]), results, launches,
+                                    NOISY_FRAMES, cloud=scan_type == "grad-sdf")
+        track = sorted(e["track_ms"] for e in m["frame_log"][1:])
+        out[scan_type] = m
+        log(f"phase14 noisy sequence, {scan_type}: ATE RMSE "
+            f"{m['ate_rmse'] * 1e3:.3f} mm over {m['ate_pairs']} frames, "
+            f"{len(m['invalid_frames'])} unconverged, {fused} fused, track_ms "
+            f"median {track[len(track) // 2]:.2f}, kernel launches {launches}")
+        paths[f"phase 14 (scan3d {scan_type}, noisy)"] = (launches, FUSION_KERNELS)
+    g = out["grad-sdf"]
+    if not (g["ate_rmse"] < NOISY_ATE_LIMIT
+            and len(g["invalid_frames"]) <= NOISY_UNCONVERGED_MAX):
+        raise AssertionError(f"noisy grad-sdf: ATE {g['ate_rmse']} m (limit "
+                             f"{NOISY_ATE_LIMIT}), {len(g['invalid_frames'])} "
+                             f"unconverged (limit {NOISY_UNCONVERGED_MAX})")
+    return paths
 
 
 def main():
@@ -1196,6 +1558,7 @@ def main():
                      "--width", "640", "--height", "480", "--arc-deg", "4",
                      "--no-noise", "--device", "cuda"])
     launches, straight, straight_err = phase_app(data, n_frames)
+    phase_pack(data, n_frames)
     phase_gt(data, n_frames)
 
     # PhotoBA: the JAX app test's protocol at full VGA width
@@ -1213,17 +1576,23 @@ def main():
     torch.cuda.empty_cache()
     base_launches = phase_ablation_and_resume(data, n_frames, straight,
                                               straight_err)
+    phase_codecs()
     # each main path was counted from zero and launched its kernels
     paths = {"phase 4 (scan3d)": (launches, FUSION_KERNELS),
              "phase 6 (photoba)": (ba_launches, FUSION_KERNELS),
              "phase 9 (renders)": (render_launches, ("raycast_march",)),
              "phase 10 (scan3d base-sdf)": (base_launches, FUSION_KERNELS)}
+    paths.update(phase_box())
+    paths.update(phase_loaders(data, n_frames))
+    paths.update(phase_noisy())
     for path, (counts, kernels) in paths.items():
         if any(counts[k] <= 0 for k in kernels):
             raise AssertionError(f"{path} launched no kernel: {counts}")
-    launches = {k: sum(c[k] for c, _ in paths.values()) for k in launches}
-    counted = ("phase 4 (scan3d tracking) + phase 6 (photoba) + phase 10 "
-               "(scan3d base-sdf: F=2, no gradients)")
+
+    def counted_in(kernel):
+        names = [p for p, (_, ks) in paths.items() if kernel in ks]
+        return (sum(paths[p][0][kernel] for p in names),
+                " + ".join(f"{p}: {paths[p][0][kernel]}" for p in names))
 
     log(smi_line())
     log(json.dumps({"kernels": [{
@@ -1231,8 +1600,8 @@ def main():
         "route": "cuda",
         "source": "gradient_sdf_tpu_torch/csrc/scatter_add.cu",
         "replaces": "gradient_sdf_tpu/ops/pallas/scatter_add.py:103",
-        "launches": launches["scatter_add"],
-        "launches_counted_in": counted,
+        "launches": counted_in("scatter_add")[0],
+        "launches_counted_in": counted_in("scatter_add")[1],
         "bound_by": "bytes",
         **kstats["scatter"],
     }, {
@@ -1240,8 +1609,8 @@ def main():
         "route": "cuda",
         "source": "gradient_sdf_tpu_torch/csrc/merge_clear.cu",
         "replaces": "gradient_sdf_tpu/ops/fusion.py:362",
-        "launches": launches["merge_clear"],
-        "launches_counted_in": counted,
+        "launches": counted_in("merge_clear")[0],
+        "launches_counted_in": counted_in("merge_clear")[1],
         "bound_by": "bytes",
         **kstats["merge"],
     }, {
@@ -1249,8 +1618,8 @@ def main():
         "route": "cuda",
         "source": "gradient_sdf_tpu_torch/csrc/raycast_march.cu",
         "replaces": "gradient_sdf_tpu/ops/raycast.py:178",
-        "launches": launches["raycast_march"],
-        "launches_counted_in": "phase 9 (render_depth_normal, four modes)",
+        "launches": counted_in("raycast_march")[0],
+        "launches_counted_in": counted_in("raycast_march")[1],
         "timed_on": "phase 8: the render scene's 307,200 full-resolution rays, "
                     "unwindowed, in 8x4 pixel tiles",
         **kstats["march"],

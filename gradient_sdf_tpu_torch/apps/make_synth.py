@@ -1,14 +1,15 @@
-"""Synthetic dataset generator: renders the sphere world to disk.
+"""Synthetic dataset generator: renders the sphere or the box world to disk.
 
-Port of `gradient_sdf_tpu/apps/make_synth.py` for the spheres world: writes
-`depth/%03d.png` (16-bit, millimetres), `rgb/%03d.png`, `albedo/%03d.png`,
-`intrinsics.txt`, `gt_poses.txt` (TUM format) and `spheres.txt`, the
-layout `SynthLoader` reads. PNGs go through the package's stdlib codec.
-Noise is drawn from `numpy.random.default_rng(seed)`, so noisy datasets
-differ from the JAX package's; `--no-noise` datasets agree up to float
-rounding of the renderer. Rendering runs on `--device` (default `cuda`,
-raising where there is no card); pass `cpu` where a dataset must come out
-the same on every machine.
+Port of `gradient_sdf_tpu/apps/make_synth.py`: writes `depth/%03d.png`
+(16-bit, millimetres), `rgb/%03d.png`, `albedo/%03d.png`,
+`intrinsics.txt`, `gt_poses.txt` (TUM format) and `spheres.txt` (or, with
+`--world box`, `boxes.txt`), the layout `SynthLoader` reads. PNGs go
+through the package's own codec (`data/png.py`). Noise is drawn from
+`numpy.random.default_rng(seed)`, so noisy datasets differ from the JAX
+package's; `--no-noise` datasets agree up to float rounding of the
+renderer. Rendering runs on `--device` (default `cuda`, raising where there
+is no card); pass `cpu` where a dataset must come out the same on every
+machine.
 
 Usage:  python -m gradient_sdf_tpu_torch.apps.make_synth --out <dir> [--frames 90]
 """
@@ -64,6 +65,41 @@ def render_color(world, R, t, K, width, height, gray_texture: bool = False):
                        torch.zeros((), device=zmin.device))
 
 
+def render_color_boxes(world, R, t, K, width, height,
+                       gray_texture: bool = False):
+    """Albedo render [H, W, 3] of the box world: flat per-box colours (the
+    sphere palette, cycled) or the greyscale world-anchored pattern of
+    `render_color`."""
+    fx, fy, cx, cy = (float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
+                      float(K[1, 2]))
+    dev = world.centers.device
+    depth = synth.render_depth_boxes(world, R, t, K, width, height)
+    hit = depth > 0.0
+    u = (torch.arange(width, dtype=torch.float32, device=dev) - cx) / fx
+    v = (torch.arange(height, dtype=torch.float32, device=dev) - cy) / fy
+    cv, cu = torch.meshgrid(v, u, indexing="ij")
+    Rt = torch.as_tensor(R, dtype=torch.float32, device=dev)
+    tt = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    pw = se3.se3_apply(Rt, tt, torch.stack([depth * cu, depth * cv, depth], -1))
+    zero = torch.zeros((), device=dev)
+    if gray_texture:
+        g = (0.55
+             + 0.15 * torch.sin(31.0 * pw[..., 0])
+             + 0.15 * torch.sin(29.0 * pw[..., 1])
+             + 0.15 * torch.sin(27.0 * pw[..., 2]))
+        g = torch.where(hit, g, zero)
+        return g[..., None].expand(tuple(g.shape) + (3,))
+    # a surface point's nearest box is the box it lies on
+    q = torch.abs(pw[..., None, :] - world.centers) - world.half_extents
+    sdf_b = (torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)
+             + torch.clamp(q.max(dim=-1).values, max=0.0))
+    bidx = torch.argmin(sdf_b, dim=-1)
+    n = world.centers.shape[0]
+    colors = torch.as_tensor(SPHERE_COLORS[np.arange(n) % len(SPHERE_COLORS)],
+                             device=dev)
+    return torch.where(hit[..., None], colors[bidx], zero)
+
+
 def write_png16(path, depth_m):
     mm = np.clip(np.round(np.asarray(depth_m) * 1000.0), 0, 65535)
     write_png(path, mm.astype(np.uint16))
@@ -75,7 +111,8 @@ def write_png8(path, img):
 
 def generate(out: str, frames: int = 90, seed: int = 0, width: int = 640,
              height: int = 480, noise: bool = True, arc_deg: float = None,
-             gray_texture: bool = False, loop: bool = False, device="cuda"):
+             gray_texture: bool = False, loop: bool = False,
+             world_kind: str = "spheres", device="cuda"):
     dev = device_mod.require(device)
     # Kinect intrinsics, scaled when rendering below the native 640x480
     K = synth.KINECT_K.copy()
@@ -89,16 +126,35 @@ def generate(out: str, frames: int = 90, seed: int = 0, width: int = 640,
         os.makedirs(os.path.join(out, sub), exist_ok=True)
     np.savetxt(os.path.join(out, "intrinsics.txt"), K, fmt="%.6f")
 
-    world = synth.random_spheres(seed=seed, device=dev)
-    poses = synth.orbit_poses(n=frames, radius=2.0, arc=np.deg2rad(arc_deg),
-                              closed=loop)
-    np.savetxt(
-        os.path.join(out, "spheres.txt"),
-        np.concatenate([world.centers.cpu().numpy(),
-                        world.radii.cpu().numpy()[:, None]], axis=1),
-        fmt="%.6f",
-        header="cx cy cz r",
-    )
+    if world_kind == "box":
+        world = synth.default_boxes(seed=seed, device=dev)
+        # the boxes stand on a floor slab (top at z = -0.4): orbit lower and
+        # from above, so faces, creases and box-over-floor occlusion edges
+        # are all in view
+        poses = synth.orbit_poses(
+            n=frames, radius=1.8, height_range=(0.35, 0.6),
+            target=np.array([0.0, 0.0, -0.25]), arc=np.deg2rad(arc_deg),
+            closed=loop)
+        np.savetxt(
+            os.path.join(out, "boxes.txt"),
+            np.concatenate([world.centers.cpu().numpy(),
+                            world.half_extents.cpu().numpy()], axis=1),
+            fmt="%.6f",
+            header="cx cy cz hx hy hz",
+        )
+        depth_fn, color_fn = synth.render_depth_boxes, render_color_boxes
+    else:
+        world = synth.random_spheres(seed=seed, device=dev)
+        poses = synth.orbit_poses(n=frames, radius=2.0,
+                                  arc=np.deg2rad(arc_deg), closed=loop)
+        np.savetxt(
+            os.path.join(out, "spheres.txt"),
+            np.concatenate([world.centers.cpu().numpy(),
+                            world.radii.cpu().numpy()[:, None]], axis=1),
+            fmt="%.6f",
+            header="cx cy cz r",
+        )
+        depth_fn, color_fn = synth.render_depth, render_color
     tumio.write_trajectory(
         os.path.join(out, "gt_poses.txt"),
         [(f"{i + 1:03d}", R, t) for i, (R, t) in enumerate(poses)],
@@ -106,11 +162,11 @@ def generate(out: str, frames: int = 90, seed: int = 0, width: int = 640,
 
     rng = np.random.default_rng(seed)
     for i, (R, t) in enumerate(poses):
-        depth = synth.render_depth(world, R, t, K, width, height)
+        depth = depth_fn(world, R, t, K, width, height)
         if noise:
             depth = synth.add_kinect_noise(depth, rng)
-        color = render_color(world, R, t, K, width, height,
-                             gray_texture=gray_texture).cpu().numpy()
+        color = color_fn(world, R, t, K, width, height,
+                         gray_texture=gray_texture).cpu().numpy()
         name = f"{i + 1:03d}.png"
         write_png16(os.path.join(out, "depth", name), depth.cpu().numpy())
         write_png8(os.path.join(out, "rgb", name), color)
@@ -133,7 +189,10 @@ def build_parser():
     p.add_argument("--loop", action="store_true",
                    help="loop-closing trajectory: full orbit + sine height "
                         "ramp")
-    p.add_argument("--world", choices=["spheres", "box"], default="spheres")
+    p.add_argument("--world", choices=["spheres", "box"], default="spheres",
+                   help="analytic world: smooth convex spheres (default) or "
+                        "a floor slab with boxes (planar faces, creases, "
+                        "occlusion edges; data/synth.BoxWorld)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; the run "
                         "fails rather than fall back if it is missing)")
@@ -142,12 +201,9 @@ def build_parser():
 
 def main(argv=None):
     a = build_parser().parse_args(argv)
-    if a.world != "spheres":
-        raise SystemExit("--world box: not yet ported to the PyTorch package "
-                         "(use gradient_sdf_tpu.apps.make_synth)")
     generate(a.out, a.frames, a.seed, a.width, a.height, noise=not a.no_noise,
              arc_deg=a.arc_deg, gray_texture=a.gray_texture, loop=a.loop,
-             device=a.device)
+             world_kind=a.world, device=a.device)
 
 
 if __name__ == "__main__":

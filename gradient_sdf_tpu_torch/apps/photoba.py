@@ -12,8 +12,7 @@ always keeping the last), runs PhotometricOptimizer.optimize() (alternating
 pose/dist solves), then the ColorUpsampler computes subvoxel albedo and
 exports the HR colored mesh + cloud (:300-311).
 
-Not yet ported (exit with a message): `--sharded-ba`, and the `printed`,
-`rw` and `redwood` data types (their loaders).
+Not yet ported (exits with a message): `--sharded-ba`.
 
 Usage:  python -m gradient_sdf_tpu_torch.apps.photoba --input <dir> [...]
 """
@@ -137,7 +136,6 @@ def run_photoba(args) -> dict:
     )
     sharp_thr = cfg.photo_ba.sharpness_threshold
 
-    # the unported data types exit here ("not yet ported")
     loader = loaders.make_loader(args.data_type, args.input)
     K = loader.load_intrinsics("intrinsics.txt")
     if K is None:

@@ -6,6 +6,9 @@ dataclasses. Fields that select TPU formulations the port does not have —
 `acc_rows8` and `TrackerConfig.compact_cap_frac` — are accepted and
 ignored: the port fuses all compacted rays in one pass through one
 scatter kernel, and compacts tracking to exactly the depth-valid pixels.
+`TrackerConfig.packed_row_gather` is honoured, as in the JAX package: on,
+grad-mode tracking packs the fields into 32-byte rows once per frame; off,
+it queries `ops/query.tsdf_grad`.
 
 Original notes follow.
 

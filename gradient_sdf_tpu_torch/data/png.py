@@ -1,22 +1,35 @@
-"""A small PNG codec on the standard library (zlib + struct) and numpy.
+"""A small PNG codec on the standard library (zlib + struct), numpy and a
+native row unfilter.
 
-Reads non-interlaced 8- and 16-bit greyscale and RGB images with any of
-the five row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth), which
-covers the depth and colour PNGs of TUM RGB-D and of the synthetic
-datasets. Writes greyscale or RGB at 8 bits and
-greyscale at 16 bits, with filter 0 on every row. 16-bit samples are
-big-endian in the file, as the format requires.
+Reads greyscale (colour type 0) and RGB (2) at 8 and 16 bits, palette
+images (3) at 1, 2, 4 and 8 bits, expanded through `PLTE` to RGB, grey+alpha
+(4) and RGBA (6) at 8 and 16 bits, non-interlaced or Adam7-interlaced, with
+any of the five row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth). That
+covers what the JAX package's loaders read through its native decoder or
+PIL. Rows are unfiltered by `native/png_unfilter.c`, built at first use with
+the host C compiler; `_unfilter` below is its plain numpy version, which the
+tests hold it to. Writes greyscale or RGB at 8 bits and greyscale at 16
+bits, with a filter per row (default 0). 16-bit samples are big-endian in
+the file, as the format requires.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
 
+from ..native import _build
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3}  # colour type -> samples per pixel
+# colour type -> (samples per pixel, allowed bit depths)
+_TYPES = {0: (1, (8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+          4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (x start, y start, x step, y step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -24,8 +37,33 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray):
-    """Write uint8 [H, W] / [H, W, 3] or uint16 [H, W] as a PNG."""
+def filter_rows(raw: np.ndarray, bpp: int, filters) -> np.ndarray:
+    """Encode uint8 rows [h, stride] with filter type `filters[y]` on row y
+    -> the [h, 1 + stride] bytes of the image data stream. Every filter is
+    elementwise on the unfiltered bytes, so all rows encode at once."""
+    h, stride = raw.shape
+    ftype = np.asarray(filters, np.uint8).reshape(h)
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"PNG filter types are 0-4, got {int(ftype.max())}")
+    x = raw.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    pred = np.select([ftype[:, None] == k for k in (1, 2, 3, 4)],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    out = ((x - pred) & 0xFF).astype(np.uint8)
+    return np.concatenate([ftype[:, None], out], axis=1)
+
+
+def write_png(path: str, img: np.ndarray, filters=None):
+    """Write uint8 [H, W] / [H, W, 3] or uint16 [H, W] as a PNG. `filters`:
+    one filter type (0-4) per row; default 0 on every row."""
     img = np.asarray(img)
     if img.dtype == np.uint8 and img.ndim == 2:
         ctype, depth = 0, 8
@@ -37,17 +75,20 @@ def write_png(path: str, img: np.ndarray):
         raise ValueError(f"unsupported image {img.dtype} {img.shape}")
     h, w = img.shape[:2]
     rows = img.astype(">u2") if depth == 16 else img
-    raw = rows.reshape(h, -1).view(np.uint8)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), raw], axis=1)
+    raw = np.ascontiguousarray(rows).reshape(h, -1).view(np.uint8)
+    bpp = (1 if img.ndim == 2 else 3) * depth // 8
+    data = filter_rows(raw, bpp, np.zeros(h, np.uint8) if filters is None
+                       else filters)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + _chunk(b"IDAT", zlib.compress(data.tobytes(), 6))
                 + _chunk(b"IEND", b""))
 
 
 def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters -> uint8 [h, stride]."""
+    """Undo the per-row filters -> uint8 [h, stride]. The plain version of
+    `unfilter`: numpy for filters 0-2, an interpreted loop for 3 and 4."""
     raw = np.frombuffer(data, np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError("PNG image data has the wrong size")
@@ -89,16 +130,55 @@ def _unfilter_seq(line, prev, bpp, ftype) -> np.ndarray:
     return np.asarray(cur, np.uint8)
 
 
+def _native():
+    lib = _build.load("png_unfilter")
+    fn = lib.gsdf_png_unfilter
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64]
+        fn.restype = ctypes.c_int64
+    return fn
+
+
+def unfilter(data, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters -> uint8 [h, stride], in native code (the
+    same function as `_unfilter`)."""
+    raw = np.frombuffer(data, np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError("PNG image data has the wrong size")
+    out = np.empty((h, stride), np.uint8)
+    bad = _native()(raw.ctypes.data, out.ctypes.data, h, stride, bpp)
+    if bad:
+        raise ValueError(f"unknown PNG filter type {raw[(bad - 1) * (stride + 1)]}")
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, depth: int, ch: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, w, ch] (uint8, or uint16 at
+    16 bits; sub-byte samples unpacked, most significant bits first)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, -1, 2).view(">u2")[..., 0].astype(
+            np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    vals = (bits * weights).sum(axis=-1, dtype=np.uint8)
+    return vals[:, :w * ch].reshape(h, w, ch)
+
+
 def read_png(path: str) -> np.ndarray:
-    """PNG -> numpy array: uint8 or uint16, [H, W] for greyscale, [H, W, 3]
-    for RGB."""
+    """PNG -> numpy array, uint8 or uint16 (16-bit images): [H, W] grey,
+    [H, W, 2] grey+alpha, [H, W, 3] RGB and palette images (expanded through
+    the palette), [H, W, 4] RGBA."""
     with open(path, "rb") as f:
         blob = f.read()
     if not blob.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     pos = len(_SIGNATURE)
     idat = []
-    hdr = None
+    hdr = plte = None
     while pos < len(blob):
         (n,) = struct.unpack(">I", blob[pos:pos + 4])
         tag = blob[pos + 4:pos + 8]
@@ -106,21 +186,44 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + n
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", data)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(data, np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(data)
         elif tag == b"IEND":
             break
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = hdr
-    if ctype not in _CHANNELS or depth not in (8, 16) or interlace:
+    w, h, depth, ctype, comp, filt, interlace = hdr
+    if (ctype not in _TYPES or depth not in _TYPES[ctype][1] or comp or filt
+            or interlace not in (0, 1)):
         raise ValueError(
             f"{path}: unsupported PNG (bit depth {depth}, colour type "
             f"{ctype}, interlace {interlace})")
-    ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    if depth == 16:
-        pix = pix.reshape(h, w * ch, 2).view(">u2")[..., 0].astype(np.uint16)
-    arr = pix.reshape(h, w, ch)
-    return arr[..., 0] if ch == 1 else arr
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{path}: palette image without a PLTE chunk")
+    ch = _TYPES[ctype][0]
+    bits = ch * depth          # per pixel
+    bpp = max(1, bits // 8)    # the filters' byte distance
+    data = zlib.decompress(b"".join(idat))
+    if not interlace:
+        img = _samples(unfilter(data, h, -(-w * bits // 8), bpp), w, depth, ch)
+    else:
+        img = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue    # an empty pass has no rows, not even filter bytes
+            stride = -(-pw * bits // 8)
+            size = ph * (stride + 1)
+            rows = unfilter(data[pos:pos + size], ph, stride, bpp)
+            img[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
+            pos += size
+        if pos != len(data):
+            raise ValueError(f"{path}: PNG image data has the wrong size")
+    if ctype == 3:
+        if int(img.max(initial=0)) >= len(plte):
+            raise ValueError(f"{path}: palette index beyond the PLTE chunk")
+        return plte[img[..., 0]]
+    return img[..., 0] if ch == 1 else img

@@ -1,14 +1,15 @@
-"""Synthetic sphere world: analytic renderer + Kinect noise + ground truth.
+"""Synthetic worlds: analytic renderers + Kinect noise + ground truth.
 
-Port of the spheres world of `gradient_sdf_tpu/data/synth.py` (the
-reference's MATLAB validation pipeline, `matlab/RenderSpheres.m:36-139`,
+Port of `gradient_sdf_tpu/data/synth.py` (the reference's MATLAB
+validation pipeline, `matlab/RenderSpheres.m:36-139`,
 `matlab/add_kinect_noise.m:50-74`): five random non-intersecting spheres
 rendered by analytic ray casts at Kinect intrinsics, with disparity-domain
-Gaussian noise and disparity quantization. The sphere draw uses the same
-numpy generator as the JAX package, so a seed gives the same world; the
-noise comes from a numpy `Generator` (the JAX package draws it with
-`jax.random`, so noisy frames differ between the packages). The box world
-is not ported yet.
+Gaussian noise and disparity quantization; and the box world (a floor slab
+and boxes standing on it: planar faces, creases and occlusion edges, with
+an exact SDF). Both draws use the same numpy generator as the JAX package,
+so a seed gives the same world; the noise comes from a numpy `Generator`
+(the JAX package draws it with `jax.random`, so noisy frames differ
+between the packages).
 """
 
 from __future__ import annotations
@@ -96,6 +97,100 @@ def render_depth(world: SphereWorld, R, t, K: np.ndarray = KINECT_K,
     (R, t); missed rays get depth 0."""
     z, _, _ = _ray_sphere_z(world, R, t, K, width, height)
     depth = torch.min(z, dim=-1).values
+    return torch.where(torch.isinf(depth), torch.zeros_like(depth), depth)
+
+
+class BoxWorld(NamedTuple):
+    """Axis-aligned box union (see the JAX module): flat faces, 90-degree
+    creases and depth steps where a box occludes the floor slab, with an
+    exact SDF and gradient for scoring."""
+
+    centers: torch.Tensor       # [B, 3]
+    half_extents: torch.Tensor  # [B, 3]
+
+
+def default_boxes(seed: int = 0, n: int = 3, device="cpu") -> BoxWorld:
+    """Floor slab (top face at z = -0.4) plus n boxes resting on it,
+    rejection-sampled for xy separation >= 5 cm; the JAX package's draw."""
+    rng = np.random.RandomState(seed)
+    centers = [np.array([0.0, 0.0, -0.45])]
+    halfs = [np.array([0.8, 0.8, 0.05])]
+    placed: list = []
+    while len(placed) < n:
+        h = 0.06 + 0.14 * rng.rand(3)
+        c = np.array([rng.uniform(-0.35, 0.35), rng.uniform(-0.35, 0.35),
+                      -0.4 + h[2]])
+        ok = all(
+            np.max(np.abs(c[:2] - p[:2]) - (h[:2] + ph[:2])) > 0.05
+            for p, ph in placed
+        )
+        if ok:
+            placed.append((c, h))
+    for c, h in placed:
+        centers.append(c)
+        halfs.append(h)
+    return BoxWorld(
+        centers=torch.as_tensor(np.array(centers), dtype=torch.float32,
+                                device=device),
+        half_extents=torch.as_tensor(np.array(halfs), dtype=torch.float32,
+                                     device=device),
+    )
+
+
+def box_sdf(world: BoxWorld, points: torch.Tensor):
+    """Exact SDF + unit gradient of the box union at world points (…,3).
+
+    Per box, with q = |p - c| - h: outside distance ||max(q, 0)||, inside
+    max_i(q_i); union by min (the SIGNED argmin). Gradients: the outward
+    face/edge/corner direction outside, the one-hot max-axis normal inside."""
+    d = points[..., None, :] - world.centers           # (…,B,3)
+    q = torch.abs(d) - world.half_extents              # (…,B,3)
+    out = torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)   # (…,B)
+    sdf_b = out + torch.clamp(q.max(dim=-1).values, max=0.0)
+    b = torch.argmin(sdf_b, dim=-1)
+    sdf = torch.gather(sdf_b, -1, b[..., None])[..., 0]
+    idx = b[..., None, None].expand(tuple(b.shape) + (1, 3))
+    dn = torch.gather(d, -2, idx)[..., 0, :]
+    qn = torch.gather(q, -2, idx)[..., 0, :]
+    outn = torch.gather(out, -1, b[..., None])[..., 0]
+    g_out = (torch.sign(dn) * torch.clamp(qn, min=0.0)
+             / torch.clamp(outn[..., None], min=1e-12))
+    g_in = torch.sign(dn) * torch.nn.functional.one_hot(
+        torch.argmax(qn, dim=-1), 3).to(points.dtype)
+    grad = torch.where((outn > 0.0)[..., None], g_out, g_in)
+    return sdf, grad
+
+
+def render_depth_boxes(world: BoxWorld, R, t, K: np.ndarray = KINECT_K,
+                       width: int = 640, height: int = 480) -> torch.Tensor:
+    """Exact ray/AABB (slab) depth render [H, W] under camera-to-world
+    (R, t), on the world's device. Rays use the unnormalized camera
+    direction [cu, cv, 1], so the slab parameter is the camera-space depth
+    z; per box tn = max_i min(t1, t2), tf = min_i max(t1, t2), hit iff
+    tn <= tf and tf > 0; missed rays get depth 0. The [H, W, B, 3] slab
+    terms are ~15 MB at 640x480 with 4 boxes."""
+    dev = world.centers.device
+    fx, fy, cx, cy = (float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
+                      float(K[1, 2]))
+    u = (torch.arange(width, dtype=torch.float32, device=dev) - cx) / fx
+    v = (torch.arange(height, dtype=torch.float32, device=dev) - cy) / fy
+    cv, cu = torch.meshgrid(v, u, indexing="ij")
+    d_cam = torch.stack([cu, cv, torch.ones_like(cu)], dim=-1)     # [H,W,3]
+    R = torch.as_tensor(R, dtype=torch.float32, device=dev)
+    o = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    d_w = d_cam @ R.T
+    d_safe = torch.where(torch.abs(d_w) < 1e-12, torch.full_like(d_w, 1e-12), d_w)
+    inv = 1.0 / d_safe
+    bmin = world.centers - world.half_extents                      # [B,3]
+    bmax = world.centers + world.half_extents
+    t1 = (bmin - o) * inv[..., None, :]                            # [H,W,B,3]
+    t2 = (bmax - o) * inv[..., None, :]
+    tn = torch.minimum(t1, t2).max(dim=-1).values                  # [H,W,B]
+    tf = torch.maximum(t1, t2).min(dim=-1).values
+    hit = (tn <= tf) & (tf > 0.0)
+    s = torch.where(tn > 0.0, tn, tf)
+    s = torch.where(hit, s, torch.full_like(s, float("inf")))
+    depth = s.min(dim=-1).values
     return torch.where(torch.isinf(depth), torch.zeros_like(depth), depth)
 
 

@@ -6,7 +6,9 @@ each iteration is one vectorized residual pass over the depth-valid pixels
 — transform by the current pose, query the SDF, accumulate (E, g, H) =
 (sum phi^2, sum phi J, sum J J^T) with J = [grad, p x grad] — then a 6x6
 solve and pose <- exp(-xi) * pose. `mode="grad"` queries the semi-implicit
-field (one packed row gather per residual); `mode="trilinear"` is the
+field: with `TrackerConfig.packed_row_gather` (the default) one gather per
+residual of a 32-byte row packed once per frame, without it
+`query.tsdf_grad` (five field gathers). `mode="trilinear"` is the
 base-SDF ablation (`MapPixelSdf::tsdf`: 8 corner gathers, a residual
 counts only where all 8 corners are observed, no packed rows).
 
@@ -82,13 +84,18 @@ def _tsdf_grad_packed(grid, packed, points, gcfg, fcfg):
 def _residual_pass(grid, points_cam, z_valid, R, t, gcfg, fcfg, packed=None,
                    mode: str = "grad"):
     """One linearization pass: returns (E, g, H, count) as device tensors.
-    `mode="grad"` takes the row-packed fields of `_pack_fields`;
-    `mode="trilinear"` queries the grid's 8 corners and ignores `packed`.
+    `mode="grad"` gathers one row of `packed` (from `_pack_fields`) per
+    residual, or queries `query.tsdf_grad` (five field gathers) where
+    `packed` is None; `mode="trilinear"` queries the grid's 8 corners and
+    ignores `packed`.
     H = J^T J in full float32 (the JAX package pins Precision.HIGHEST,
     tracker.py:106; on the card TF32 must stay off)."""
     pts = se3.se3_apply(R, t, points_cam)
     if mode == "grad":
-        phi, grad, w0 = _tsdf_grad_packed(grid, packed, pts, gcfg, fcfg)
+        if packed is not None:
+            phi, grad, w0 = _tsdf_grad_packed(grid, packed, pts, gcfg, fcfg)
+        else:
+            phi, grad, w0 = query.tsdf_grad(grid, pts, gcfg, fcfg)
         valid = z_valid & (w0 > 0.0)
     elif mode == "trilinear":
         phi, grad, full = query.tsdf_trilinear(grid, pts, gcfg, fcfg)
@@ -167,7 +174,8 @@ def track_frame(
     z_valid = (z > fcfg.z_min) & (z < fcfg.z_max)
     pts = pts_cam[z_valid]
     valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
-    packed = _pack_fields(grid) if mode == "grad" else None
+    packed = (_pack_fields(grid)
+              if mode == "grad" and tcfg.packed_row_gather else None)
     conv_sq = tcfg.conv_threshold * tcfg.conv_threshold
     eye6 = 1e-12 * torch.eye(6, dtype=torch.float32, device=dev)
 

@@ -80,9 +80,7 @@ def test_parser_has_every_jax_flag_plus_device():
     assert got["device"][1] == "cuda"
 
 
-@pytest.mark.parametrize("extra", [["--sharded-ba"], ["--data-type", "redwood"],
-                                   ["--data-type", "rw"],
-                                   ["--data-type", "printed"]])
+@pytest.mark.parametrize("extra", [["--sharded-ba"]])
 def test_unported_options_exit_with_a_message(synth_dir, tmp_path, extra):
     argv = ["--input", synth_dir, "--results", str(tmp_path / "o"),
             "--device", "cpu"] + APP_ARGS + extra
@@ -218,3 +216,89 @@ def test_photoba_gt_poses_matches_jax_app(tmp_path):
         na = len(load_ply(os.path.join(tres, name))["vertex"])
         nb = len(load_ply(os.path.join(jres, name))["vertex"])
         assert na > 100 and abs(na - nb) <= 0.02 * nb, (name, na, nb)
+
+
+def _textured(out, frames=8):
+    tmake.generate(out, frames=frames, seed=2, width=320, height=240,
+                   noise=False, arc_deg=10.0 * frames / 14, gray_texture=True,
+                   device="cpu")
+    return tumio.read_trajectory(os.path.join(out, "gt_poses.txt"))
+
+
+def _lay_out(src, dst, layout, gt):
+    """The synth dataset at `src` as a Printed3D folder (`depth_%06d.png`,
+    `color_%06d.png` from 0) or a Redwood one (`depth/*.png`, `rgb/*.jpg`,
+    here JPEGs written by PIL, in colour or greyscale), with its trajectory
+    stamped as that loader stamps frames. Returns the stamps."""
+    import shutil
+
+    from PIL import Image
+
+    os.makedirs(dst)
+    shutil.copy(os.path.join(src, "intrinsics.txt"), dst)
+    stamps = []
+    for i in range(len(gt)):
+        name = f"{i + 1:03d}.png"
+        depth, rgb = (os.path.join(src, d, name) for d in ("depth", "rgb"))
+        if layout == "printed":
+            stamps.append(f"{i:06d}")
+            shutil.copy(depth, os.path.join(dst, f"depth_{i:06d}.png"))
+            shutil.copy(rgb, os.path.join(dst, f"color_{i:06d}.png"))
+        else:
+            stamps.append(f"{i:05d}")
+            os.makedirs(os.path.join(dst, "depth"), exist_ok=True)
+            os.makedirs(os.path.join(dst, "rgb"), exist_ok=True)
+            shutil.copy(depth, os.path.join(dst, "depth", f"{i:05d}.png"))
+            im = Image.open(rgb)
+            if layout == "redwood-grey":
+                im = im.convert("L")
+            im.save(os.path.join(dst, "rgb", f"{i:05d}.jpg"), quality=95)
+    tumio.write_trajectory(os.path.join(dst, "gt.txt"),
+                           [(s, R, t) for s, (_, R, t) in zip(stamps, gt)])
+    rng = np.random.RandomState(3)
+    tumio.write_trajectory(
+        os.path.join(dst, "ba_init.txt"),
+        [(s, R, t + (rng.randn(3) * 0.003).astype(np.float32))
+         for s, (_, R, t) in zip(stamps, gt)])
+    return stamps
+
+
+@pytest.mark.parametrize("layout,data_type", [("printed", "printed"),
+                                              ("redwood", "redwood"),
+                                              ("redwood-grey", "rw")])
+def test_photoba_on_printed3d_and_redwood_folders_matches_jax_app(
+        tmp_path, layout, data_type):
+    """PhotoBA through the Printed3D and Redwood loaders (the Redwood colour
+    frames are JPEGs: the JAX app decodes them with PIL, the port with its
+    own decoder), from ground-truth poses with BA started from perturbed
+    ones, in both apps: the same keyframes, the same phase-1 poses, BA
+    energies and poses as close as in the synth-layout test above. These
+    presets keep the sharpness threshold that the synth preset lowers, so
+    `--keyframe-gap 0` makes every frame eligible, as there."""
+    src = str(tmp_path / "synth")
+    gt = _textured(src)
+    data = str(tmp_path / layout)
+    stamps = _lay_out(src, data, layout, gt)
+    common = ["--input", data, "--key-frame", "4", "--keyframe-gap", "0",
+              "--pose-file", "gt.txt",
+              "--ba-init-pose-file", "ba_init.txt", "--data-type", data_type,
+              "--voxel-size", "0.02", "--trunc", "5"]
+    jres, tres = str(tmp_path / "j"), str(tmp_path / "t")
+    jm = jphotoba.run_photoba(jphotoba.build_parser().parse_args(
+        common + ["--results", jres]))
+    tm = tphotoba.main(common + ["--results", tres, "--device", "cpu"])
+
+    assert tm["keyframes"] == jm["keyframes"] == 4
+    assert tm["invalid_frames"] == jm["invalid_frames"] == []
+    assert len(tm["ba_energies"]) == len(jm["ba_energies"]) >= 3
+    np.testing.assert_allclose(tm["ba_energies"], jm["ba_energies"], rtol=0.05)
+    assert tm["ba_energies"][-1] < 0.9 * tm["ba_energies"][0]
+    for name in ("_poses.txt", "selected_frame_poses_before_optimization.txt",
+                 "coarse_BA_poses_optimized.txt"):
+        a = tumio.read_trajectory(os.path.join(tres, name))
+        b = tumio.read_trajectory(os.path.join(jres, name))
+        assert [e[0] for e in a] == [e[0] for e in b]
+        assert set(e[0] for e in a) <= set(stamps)
+        atol = 1e-3 if name.startswith("coarse") else 1e-6
+        np.testing.assert_allclose(np.stack([e[2] for e in a]),
+                                   np.stack([e[2] for e in b]), atol=atol)

@@ -154,6 +154,9 @@ def test_png_codec_decodes_all_filter_types(tmp_path, kind):
 
 
 def test_png_codec_rejects_interlaced_and_non_png(tmp_path):
+    """Adam7 images are read (tests/test_torch_png.py); what is rejected is
+    non-interlaced image data under the Adam7 flag (its seven passes need
+    other sizes) and an interlace method the format does not define."""
     bad = os.path.join(tmp_path, "bad.png")
     with open(bad, "wb") as f:
         f.write(b"not a png")
@@ -161,11 +164,12 @@ def test_png_codec_rejects_interlaced_and_non_png(tmp_path):
         tpng.read_png(bad)
     img = np.zeros((4, 4), np.uint8)
     blob = bytearray(_encode_png(img, 8, 0, [0]))
-    blob[28] = 1  # IHDR interlace byte -> Adam7
-    with open(bad, "wb") as f:
-        f.write(bytes(blob))
-    with pytest.raises(ValueError, match="unsupported"):
-        tpng.read_png(bad)
+    for method, message in ((1, "wrong size"), (2, "unsupported")):
+        blob[28] = method  # IHDR interlace byte: 1 is Adam7
+        with open(bad, "wb") as f:
+            f.write(bytes(blob))
+        with pytest.raises(ValueError, match=message):
+            tpng.read_png(bad)
 
 
 @pytest.fixture(scope="module")
@@ -339,6 +343,49 @@ def test_scan3d_apps_agree_on_trajectory(apps, dataset):
     assert "ate_rmse" not in tm  # no groundtruth.txt in a synth dataset
     # frame 0 anchors both at identity, then every frame is tracked
     assert all(e["gn_iters"] for e in tm["frame_log"][1:])
+
+
+@pytest.mark.parametrize("data_type", ["printed", "rw"])
+def test_scan3d_reads_printed3d_and_redwood_layouts(apps, dataset, tmp_path,
+                                                    data_type):
+    """The dataset laid out as a Printed3D folder (its PNGs renamed) or a
+    Redwood one (its depth PNGs, the colour as JPEGs written by PIL): the
+    port's Scan3D tracks it through that loader to the poses of the synth
+    layout (the same depth frames), stamped as that loader stamps frames."""
+    import shutil
+
+    from PIL import Image
+
+    root = str(tmp_path / data_type)
+    os.makedirs(root)
+    shutil.copy(os.path.join(dataset, "intrinsics.txt"), root)
+    stamps = []
+    for i in range(4):
+        depth, rgb = (os.path.join(dataset, sub, f"{i + 1:03d}.png")
+                      for sub in ("depth", "rgb"))
+        if data_type == "printed":
+            stamps.append(f"{i:06d}")
+            shutil.copy(depth, os.path.join(root, f"depth_{i:06d}.png"))
+            shutil.copy(rgb, os.path.join(root, f"color_{i:06d}.png"))
+        else:
+            stamps.append(f"{i:05d}")
+            for sub in ("depth", "rgb"):
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+            shutil.copy(depth, os.path.join(root, "depth", f"{i:05d}.png"))
+            with Image.open(rgb) as im:
+                im.save(os.path.join(root, "rgb", f"{i:05d}.jpg"))
+    res = str(tmp_path / "out")
+    m = tscan.main(["--input", root, "--results", res, "--pose-file",
+                    "none.txt", "--data-type", data_type, "--voxel-size",
+                    "0.02", "--trunc", "5", "--device", "cpu"])
+    assert m["frames"] == 4
+    got = tumio.read_trajectory(os.path.join(res, "_poses.txt"))
+    want = tumio.read_trajectory(
+        os.path.join(apps["torch", "track"][0], "_poses.txt"))
+    assert [e[0] for e in got] == stamps
+    for (_, Ra, ta), (_, Rb, tb) in zip(got, want):
+        np.testing.assert_allclose(Ra, Rb, atol=1e-6)
+        np.testing.assert_allclose(ta, tb, atol=1e-6)
 
 
 def test_scan3d_device_cuda_raises_without_cuda(dataset, tmp_path):

@@ -18,6 +18,8 @@ Tolerances, with their reasons:
     runs are held to the noise floor instead (2 cm, 0.02 rad).
 """
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -262,3 +264,54 @@ def test_track_and_fuse_frame_matches_jax(setup, monkeypatch):
     # ~2e-6 m, its weight 1 - sdf/T by ~2e-5, summed over ~10 samples
     np.testing.assert_allclose(tg.weight.numpy(), np.asarray(jg.weight), atol=5e-4)
     np.testing.assert_allclose(tg.dist.numpy(), np.asarray(jg.dist), atol=5e-4)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_packed_row_gather_setting_matches_jax(setup, packed):
+    """`TrackerConfig.packed_row_gather` on and off (the JAX tracker queries
+    `query.tsdf_grad` when it is off, tests/test_tracker.py:196-236): the
+    same iterates, stop and energy as the JAX tracker at the same setting,
+    in the cases that stop within 4 iterations (module docstring)."""
+    poses = setup[1]
+    for case in ("perturbed", "gt_start"):
+        idx, perturb, tcfg, converges = CASES[case]
+        tcfg = dataclasses.replace(tcfg, packed_row_gather=packed)
+        R0, t0 = _perturbed(*poses[idx]) if perturb else poses[idx]
+        rj, rt = _track_both(setup, idx, R0, t0, tcfg)
+        assert rt.converged == bool(rj.converged) == converges
+        assert rt.num_iters == int(rj.num_iters) <= 4
+        assert rt.num_valid == int(rj.num_valid) > 250
+        np.testing.assert_allclose(rt.R.numpy(), np.asarray(rj.R), atol=POSE_TOL)
+        np.testing.assert_allclose(rt.t.numpy(), np.asarray(rj.t), atol=POSE_TOL)
+        np.testing.assert_allclose(rt.energy, float(rj.energy), rtol=1e-3)
+
+
+def test_unpacked_residual_pass_equals_packed(setup):
+    """Without packed rows the pass queries `query.tsdf_grad`: the same
+    gathers and arithmetic, so (E, g, H, count) are bit-equal, as in the JAX
+    package; and the flag decides which of the two `track_frame` runs."""
+    _, poses, _, tgrid, depths = setup
+    R0, t0 = (torch.from_numpy(a) for a in _perturbed(*poses[4]))
+    pt, zt = ttr.backproject_grid(torch.from_numpy(depths[4]), K, 1)
+    zv = (zt > FCFG.z_min) & (zt < FCFG.z_max)
+    packed = ttr._residual_pass(tgrid, pt, zv, R0, t0, GCFG, FCFG,
+                                ttr._pack_fields(tgrid))
+    plain = ttr._residual_pass(tgrid, pt, zv, R0, t0, GCFG, FCFG, None)
+    for a, b in zip(packed, plain):
+        assert torch.equal(a, b)
+    calls = []
+    real = ttr._pack_fields
+
+    def counting(grid):
+        calls.append(1)
+        return real(grid)
+
+    ttr._pack_fields = counting
+    try:
+        for flag in (False, True):
+            ttr.track_frame(tgrid, torch.from_numpy(depths[4]), K, R0, t0, GCFG,
+                            FCFG, TrackerConfig(num_iterations=1,
+                                                packed_row_gather=flag))
+    finally:
+        ttr._pack_fields = real
+    assert len(calls) == 1
