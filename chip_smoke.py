@@ -22,6 +22,13 @@ checks the host PNG and JPEG decoders built here; phase 12 the box world at
 VGA (make_synth, Scan3D at 1 cm, the gradient analysis on the card, a
 render's march bit for bit); phase 13 Scan3D through the Printed3D and
 Redwood loaders; phase 14 a 60-frame noisy sequence, grad-SDF gated on ATE.
+Phase 15 runs the mesh: 4 ranks as 2 rays x 2 blocks on the cards this
+machine has (on one card they share it under gloo, and say so), in one
+group, through the apps' entry points: Scan3D --devices 4 tracking and from
+ground-truth poses against phases 4 and 5, a cut and resumed mesh run, a
+sharded render of the render scene bit for bit against the unsharded one,
+one sharded BA alternation at phase 7's scale point against one card, and
+PhotoBA --sharded-ba on phase 6b's textured spheres.
 Every phase raises on failure, which ends the run non-zero. Needs one CUDA
 card; fails at once without one. Scratch files go to `smoke_out/` under the
 checkout.
@@ -775,6 +782,7 @@ def phase_ba_scale():
         f"({prof['device_busy_share']:.1%}), host syncs {prof['host_syncs']}")
     for r in prof["top"][:5]:
         log(f"  phase7 top kernel: {r['ms']:.3f} ms x{r['count']} {r['name']}")
+    return ms
 
 
 def same_march(got, want, what):
@@ -1523,6 +1531,451 @@ def phase_noisy():
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh (4 ranks as 2 rays x 2 blocks)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS, MESH_BLOCKS = 4, 2
+# 15a: scan3d on the mesh vs phase 4 on one card, tests/test_app_sharded.py's
+# bounds: the sharded and unsharded residual passes sum in other orders and GN
+# turns that into pose noise at its 1e-3 stopping rule
+MESH_POSE_TOL = 3e-3
+MESH_SHARED_MIN = 0.99
+MESH_DIST_MEDIAN, MESH_DIST_P99 = 2e-4, 3e-3
+# the render's active-prefix cap: num_active rounded up to this
+ACTIVE_CAP_RUNG = 256
+
+
+def save_grid_prefix(grid, path):
+    """The grid's arrays as .npy files, its five fields cut to the allocated
+    slots (the rest is zero): what the ranks of phase 15 load."""
+    import numpy as np
+    from gradient_sdf_tpu_torch.utils import interop
+
+    na = int(grid.num_active)
+    os.makedirs(path, exist_ok=True)
+    for k, v in interop.grid_to_numpy(grid).items():
+        np.save(os.path.join(path, k + ".npy"),
+                v[:na] if k in ("dist", "weight", "grad_x", "grad_y", "grad_z")
+                else v)
+
+
+def load_grid_prefix(path, device):
+    import numpy as np
+    from gradient_sdf_tpu_torch.utils import interop
+
+    d = {k[:-4]: np.load(os.path.join(path, k)) for k in os.listdir(path)}
+    nb = d["block_coords"].shape[0]
+    for k in ("dist", "weight", "grad_x", "grad_y", "grad_z"):
+        a = d[k]
+        d[k] = np.concatenate([a, np.zeros((nb - len(a),) + a.shape[1:], a.dtype)])
+    return interop.grid_from_numpy(d, device)
+
+
+def _bits(a):
+    """A tensor's bytes, for bit-for-bit comparisons (-0.0 differs from 0.0)."""
+    import torch
+
+    a = a.contiguous()
+    return a.view(torch.uint8) if a.dtype != torch.bool else a.to(torch.uint8)
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same_bits(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def mesh_render_case(spec):
+    """15c on this rank: the render scene's grid (saved by the parent) sharded
+    over the blocks, one sharded render with the active-prefix cap (its march
+    launches counted), and the checks of it. Returns rank 0's numbers."""
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.ops import raycast
+    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+    from gradient_sdf_tpu_torch.parallel import sharding
+    from gradient_sdf_tpu_torch.tools import raycast_bench as rb
+
+    mesh = mesh_mod.make_mesh(MESH_RANKS, MESH_BLOCKS, spec["device"])
+    grid, gcfg, fcfg = (load_grid_prefix(spec["scene"], mesh.device),
+                        spec["scene_gcfg"], spec["scene_fcfg"])
+    R, t = spec["scene_pose"]
+    shard = sharding.shard_grid(mesh, grid)
+    na = int(grid.num_active)
+    cap = -(-na // ACTIVE_CAP_RUNG) * ACTIVE_CAP_RUNG
+    kw = dict(s_min=rb.S_MIN, s_max=rb.S_MAX, active_cap=cap)
+    # warm-up, then the counted and timed render
+    sharding.sharded_render_depth_normal(mesh, shard, synth.KINECT_K, R, t,
+                                         rb.W, rb.H, gcfg, fcfg, **kw)
+    _sync(mesh.device)
+    march0, coll0 = rm.launch_count, (mesh_mod.calls, mesh_mod.nbytes)
+    t0 = time.perf_counter()
+    d, n, h = sharding.sharded_render_depth_normal(
+        mesh, shard, synth.KINECT_K, R, t, rb.W, rb.H, gcfg, fcfg, **kw)
+    _sync(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = torch.tensor([rm.launch_count - march0], device=mesh.device)
+    coll = (mesh_mod.calls - coll0[0], mesh_mod.nbytes - coll0[1])
+    mesh_mod.psum(launches, mesh, count=False)
+
+    # the assembled fields equal the grid's rows, bit for bit
+    full = sharding.assemble_fields(mesh, shard, cap)
+    fields_equal = all(_same_bits(getattr(full, f), getattr(grid, f)[:cap])
+                       for f in sharding.FIELDS)
+    # the single-card raycast of the same rays over the whole grid
+    o, dirs, inv = raycast.camera_rays(synth.KINECT_K, R, t, rb.W, rb.H,
+                                       device=mesh.device)
+    ref = raycast.raycast(grid, o, dirs, gcfg, fcfg, s_min=rb.S_MIN,
+                          s_max=rb.S_MAX)
+    render_equal = (_same_bits(d, (ref.depth * inv).reshape(rb.H, rb.W))
+                    and _same_bits(n, ref.normal.reshape(rb.H, rb.W, 3))
+                    and _same_bits(h, ref.hit.reshape(rb.H, rb.W)))
+    # this rank's march (its slice of the rays) vs the plain version
+    mine = mesh_mod.shard_rows(o.shape[0], mesh)
+    s0 = torch.full((mine.stop - mine.start,), rb.S_MIN, device=mesh.device)
+    args = (o[mine].contiguous(), dirs[mine].contiguous(), s0,
+            torch.full_like(s0, rb.S_MAX), full.directory, full.coarse_occ,
+            full.dist, full.weight)
+    got = rm.raycast_march(*args, gcfg, fcfg)
+    want = rm.raycast_march_reference(*args, gcfg, fcfg)
+    march_equal = all(_same_bits(a, b) for a, b in zip(got[:3], want[:3]))
+    flags = torch.tensor([fields_equal, render_equal, march_equal],
+                         dtype=torch.int32, device=mesh.device)
+    mesh_mod.psum(flags, mesh, op=torch.distributed.ReduceOp.MIN, count=False)
+    try:
+        sharding.assemble_fields(mesh, shard, na - 1)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    return {"num_active": na, "cap": cap, "ms": ms, "hits": int(h.sum()),
+            "launches": int(launches), "collectives": coll,
+            "fields_equal": bool(flags[0]), "render_equal": bool(flags[1]),
+            "march_equal": bool(flags[2]), "found": int(got.found.sum()),
+            "slice": mine.stop - mine.start, "cap_below_raises": raised}
+
+
+def mesh_ba_case(device):
+    """15d on this rank: one sharded BA alternation at phase 7's scale point,
+    timed (median of 5 after a warm-up), and rank 0 holds it to the
+    single-card alternation by phase 7's tolerances."""
+    import numpy as np
+    import torch
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+    from gradient_sdf_tpu_torch.parallel import sharding
+    from gradient_sdf_tpu_torch.tools import ba_bench
+    from gradient_sdf_tpu_torch.utils import interop
+
+    mesh = mesh_mod.make_mesh(MESH_RANKS, MESH_BLOCKS, device)
+    arrays = ba_bench.bench_arrays()
+    gcfg, pcfg = ba_bench.bench_configs()
+    problem = interop.problem_from_numpy(arrays[0], mesh.device)
+    state = interop.state_from_numpy(arrays[1], mesh.device)
+    p_l, s_l = sharding.shard_ba(mesh, problem, state)
+    times = []
+    for _ in range(6):
+        _sync(mesh.device)
+        coll0 = (mesh_mod.calls, mesh_mod.nbytes)
+        t0 = time.perf_counter()
+        new, e_pose, e_dist = sharding.sharded_ba_step(mesh, p_l, s_l, gcfg, pcfg)
+        e_pose, e_dist = float(e_pose), float(e_dist)
+        _sync(mesh.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        coll = (mesh_mod.calls - coll0[0], mesh_mod.nbytes - coll0[1])
+    got = interop.state_to_numpy(sharding.gather_ba_state(mesh, new))
+    if mesh.rank != 0:
+        return None
+    ref, r_pose, r_dist = ba_bench.alternation(problem, state, gcfg, pcfg)
+    ref = interop.state_to_numpy(ref)
+    miss = np.abs(got["dist"] - ref["dist"]) > (BA_DIST_ATOL + BA_DIST_RTOL
+                                                * np.abs(ref["dist"]))
+    times = sorted(times[1:])
+    return {"F": arrays[0]["vis"].shape[1], "V": arrays[0]["vis"].shape[0],
+            "energies": (e_pose, e_dist), "ref_energies": (r_pose, r_dist),
+            "pose_err": float(max(np.abs(got["R"] - ref["R"]).max(),
+                                  np.abs(got["t"] - ref["t"]).max())),
+            "dist_miss": int(miss.sum()),
+            "dist_err": float(np.abs(got["dist"] - ref["dist"])[~miss].max()),
+            "ms": times[len(times) // 2], "runs": times, "collectives": coll}
+
+
+def mesh_fusion_case(spec):
+    """15e on this rank: golden frames 0-4 fused from ground-truth poses
+    through `sharded_fuse_frame` into a block-sharded grid, then frame 5
+    through the same steps one by one, with the scatter kernel held to its
+    plain version on this rank's compact sample slice and `merge_clear` on
+    its shard (bit for bit). Returns rank 0's numbers, each the worst over
+    the ranks."""
+    import dataclasses
+
+    import torch
+    from gradient_sdf_tpu_torch import config as cfg_mod
+    from gradient_sdf_tpu_torch.data import loaders
+    from gradient_sdf_tpu_torch.ops import fusion, normals
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+    from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+    from gradient_sdf_tpu_torch.parallel import sharding
+
+    mesh = mesh_mod.make_mesh(MESH_RANKS, MESH_BLOCKS, spec["device"])
+    dev = mesh.device
+    cfg = cfg_mod.preset("synth")
+    gcfg = dataclasses.replace(cfg.grid, voxel_size=0.02)
+    fcfg = dataclasses.replace(cfg.fusion, trunc_voxels=5.0)
+    loader = loaders.make_loader("synth", spec["data"])
+    K = loader.load_intrinsics("intrinsics.txt")
+    gt = loader.load_poses("gt_poses.txt")
+    frames = list(loader.frames(0, None))
+    cache = normals.build_cache(640, 480, K, fcfg.normal_window, dev)
+    grid = sharding.shard_grid(mesh, vg.create(gcfg, dev))
+    acc = fusion.new_accumulator(grid)
+
+    def inputs(f):
+        return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in (f.depth, gt[f.index][1], gt[f.index][2])]
+
+    for f in frames[:-1]:
+        grid = sharding.sharded_fuse_frame(mesh, grid, *inputs(f)[:1], cache,
+                                           *inputs(f)[1:], gcfg, fcfg, acc=acc)
+    depth, R, t = inputs(frames[-1])
+    s = fusion.frame_samples(depth, cache, R, t, gcfg, fcfg)
+    grid, lin, ok = fusion._alloc_slots(grid, s, gcfg)
+    nb, vpb = grid.num_blocks, gcfg.voxels_per_block
+    lo, m = sharding.block_range(mesh, nb)
+    lin, slot, local, fields = sharding.rank_samples(mesh, s, lin, ok, vpb, nb)
+    tidx = sharding.touched_blocks(mesh, slot, nb)
+    cap = tidx.shape[0]
+    lin_c = sharding.compact_index(slot, local, tidx, nb, vpb, cap)
+    acc_k = sa.new_accumulator(cap * vpb, dev)
+    sa.scatter_add_fields(lin_c, fields, cap * vpb, acc=acc_k[:, :5])
+    acc_p = sa.scatter_add_multi_reference(lin_c, torch.stack(fields, -1),
+                                           cap * vpb)
+    scatter_err = (acc_k[:, :5] - acc_p).abs().max()
+    scatter_ok = torch.allclose(acc_k[:, :5], acc_p, rtol=RTOL, atol=ATOL)
+    red = mesh_mod.psum(acc_k[:, :5].contiguous(), mesh, count=False)
+    sharding.keep_owned_rows(acc, red, tidx, lo, m, vpb)
+    na = sharding.shard_active(grid, lo, m)
+    state = [grid.weight, grid.dist, grid.grad_x, grid.grad_y, grid.grad_z]
+    kern = [a.clone() for a in [acc] + state]
+    plain = [a.clone() for a in [acc] + state]
+    mc.merge_clear(*kern, na)
+    mc.merge_clear_reference(*plain, na)
+    merge_equal = all(_same_bits(a, b) for a, b in zip(kern, plain))
+    worst = torch.tensor([float(scatter_err), float(not scatter_ok),
+                          float(not merge_equal)], device=dev)
+    mesh_mod.psum(worst, mesh, op=torch.distributed.ReduceOp.MAX, count=False)
+    return {"blocks": cap, "samples": int(lin_c.shape[0]),
+            "na_local": int(na), "scatter_err": float(worst[0]),
+            "scatter_ok": not worst[1], "merge_equal": not worst[2]}
+
+
+def phase15_rank(spec):
+    """One rank of phase 15: 15a-15d in one group of 4 ranks. Every rank
+    runs the same calls; rank 0 returns what they found."""
+    import torch
+    from gradient_sdf_tpu_torch.apps import photoba, scan3d
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, mesh_flags = spec["data"], ["--devices", str(MESH_RANKS),
+                                      "--block-parallel", str(MESH_BLOCKS)]
+
+    def scan(results, extra):
+        return scan3d.main(
+            ["--input", data, "--results", results, "--data-type", "synth",
+             "--voxel-size", "0.02", "--trunc", "5", "--device", spec["device"],
+             "--metrics-json", os.path.join(results, "metrics.json")]
+            + mesh_flags + extra, check_replicated=True)
+
+    out = {}
+    t0 = time.perf_counter()
+    out["track"] = scan(spec["track"], ["--pose-file", "none", "--save-sdf"])
+    out["gt"] = scan(spec["gt"], ["--pose-file", "gt_poses.txt", "--save-sdf"])
+    scan(spec["cut"], ["--pose-file", "gt_poses.txt", "--last", "2",
+                       "--checkpoint-every", "1"])
+    out["resumed"] = scan(spec["cut"], [
+        "--pose-file", "gt_poses.txt", "--save-sdf", "--resume",
+        os.path.join(spec["cut"], "checkpoint.npz")])
+    out["scan_s"] = time.perf_counter() - t0
+    out["fusion"] = mesh_fusion_case(spec)
+    out["render"] = mesh_render_case(spec)
+    out["ba"] = mesh_ba_case(spec["device"])
+    metrics = os.path.join(spec["photoba"], "metrics.json")
+    os.makedirs(spec["photoba"], exist_ok=True)
+    photoba.main(["--input", spec["textured"], "--results", spec["photoba"],
+                  "--data-type", "synth", "--voxel-size", "0.02", "--trunc", "5",
+                  "--key-frame", "4", "--pose-file", "gt_poses.txt",
+                  "--ba-init-pose-file", "ba_init.txt", "--sharded-ba",
+                  "--device", spec["device"], "--metrics-json", metrics])
+    return out if torch.distributed.get_rank() == 0 else None
+
+
+def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
+    """Phase 15: scan3d --devices 4 --block-parallel 2 through `main` on the
+    golden dataset (tracking vs phase 4, GT poses vs phase 5, a cut and
+    resumed mesh run vs the uninterrupted one), a sharded render of the
+    render scene, one sharded BA alternation at phase 7's scale point and
+    photoba --sharded-ba on phase 6b's textured data, in one group of 4
+    ranks on the card(s) this machine has; and the fusion kernels held to
+    their plain versions on a rank's inputs of the mesh path (15e).
+    `scene`: where the render scene's grid was saved (`save_grid_prefix`),
+    its configs and pose 4. Returns the counted paths, and the largest
+    error of each kernel against its plain version in this phase."""
+    import numpy as np
+    import torch
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+    from gradient_sdf_tpu_torch.tools import raycast_bench as rb
+    from gradient_sdf_tpu_torch.utils import tumio
+
+    spec = {"data": data, "track": os.path.join(WORK, "mesh_track"),
+            "gt": os.path.join(WORK, "mesh_gt"),
+            "cut": os.path.join(WORK, "mesh_resume"),
+            "photoba": os.path.join(WORK, "mesh_photoba"),
+            "textured": os.path.join(WORK, "textured"),
+            "scene": scene["path"], "scene_gcfg": scene["gcfg"],
+            "scene_fcfg": scene["fcfg"], "scene_pose": scene["pose"],
+            "device": device}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = mesh_mod.launch(phase15_rank, MESH_RANKS, spec, device=device,
+                          join_timeout_s=600)
+    wall = time.perf_counter() - t0
+    m = out["track"]
+    mesh = m["mesh"]
+    log(f"phase15 mesh: {mesh['devices']} ranks as {mesh['rays']} rays x "
+        f"{mesh['blocks']} blocks, backend {mesh['backend']}, "
+        f"{min(MESH_RANKS, torch.cuda.device_count())} card(s) in use, "
+        f"{mesh['ranks_per_card']} rank(s) per card"
+        + (" (the ranks share one card: no multi-card result)"
+           if mesh["ranks_per_card"] > 1 else "") + f"; wall {wall:.1f} s")
+
+    # 15a: tracking vs phase 4 on one card
+    if not (m["frames"] == straight["frames"]
+            and m["invalid_frames"] == straight["invalid_frames"]
+            and m["num_blocks_active"] == straight["num_blocks_active"]):
+        raise AssertionError(f"mesh run: {m['frames']} frames, invalid "
+                             f"{m['invalid_frames']}, {m['num_blocks_active']} "
+                             f"blocks; phase 4: {straight['frames']}, "
+                             f"{straight['invalid_frames']}, "
+                             f"{straight['num_blocks_active']}")
+    pose_err = pose_diff(*(tumio.read_trajectory(os.path.join(r, "_poses.txt"))
+                           for r in (os.path.join(WORK, "track"), spec["track"])))
+    na, nb, frac, err = map_diff(os.path.join(WORK, "track", "gradient_sdf"),
+                                 os.path.join(spec["track"], "gradient_sdf"))
+    med, p99 = float(np.median(err)), float(np.quantile(err, 0.99))
+    if not (pose_err < MESH_POSE_TOL and frac > MESH_SHARED_MIN
+            and med < MESH_DIST_MEDIAN and p99 < MESH_DIST_P99):
+        raise AssertionError(f"mesh vs phase 4: poses {pose_err}, shared voxels "
+                             f"{frac} ({na} / {nb}), dist median {med} p99 {p99}")
+    fused = sum(e["fuse_ms"] is not None for e in m["frame_log"])
+    launches = mesh["kernel_launches"]
+    if any(launches[k] != MESH_RANKS * fused for k in FUSION_KERNELS):
+        raise AssertionError(f"mesh launches {launches} for {fused} fused "
+                             f"frames on {MESH_RANKS} ranks")
+    log(f"phase15a scan3d --devices {MESH_RANKS} --block-parallel {MESH_BLOCKS} "
+        f"vs phase 4: {m['frames']} frames, {fused} fused, invalid "
+        f"{m['invalid_frames']}, {m['num_blocks_active']} blocks; poses max "
+        f"|err| {pose_err:.3g} (< {MESH_POSE_TOL}), voxels shared {frac:.6f} "
+        f"({nb} vs {na}), dist median {med:.3g} p99 {p99:.3g} m; replicated "
+        f"state equal after every frame; kernel launches over the ranks "
+        f"{launches}")
+    for e, e4 in zip(m["frame_log"], straight["frame_log"]):
+        iters = e["gn_iters"] or 0
+        per_iter = ("" if not iters else
+                    f", {(e['collective_calls'] - 2 * (e['fuse_ms'] is not None)) / iters:.0f} "
+                    f"per GN iteration (176 B each)")
+        fmt = lambda x: "-" if x is None else f"{x:.2f}"
+        log(f"  phase15a frame {e['frame']}: track {fmt(e['track_ms'])} ms "
+            f"(phase 4 {fmt(e4['track_ms'])}), GN iters {e['gn_iters']} "
+            f"(phase 4 {e4['gn_iters']}), fuse {fmt(e['fuse_ms'])} ms (phase 4 "
+            f"{fmt(e4['fuse_ms'])}); collectives {e['collective_calls']} calls, "
+            f"{e['collective_bytes']} bytes{per_iter}")
+
+    # 15b: GT poses vs phase 5, then cut + resume vs the mesh run
+    for what, a, b, frames in (
+            ("GT poses vs phase 5", os.path.join(WORK, "gt"), spec["gt"], None),
+            ("cut after frame 2 and resumed vs the uninterrupted mesh run",
+             spec["gt"], spec["cut"], out["resumed"]["frames"])):
+        na, nb, frac, err = map_diff(os.path.join(a, "gradient_sdf"),
+                                     os.path.join(b, "gradient_sdf"))
+        if not (frac >= RESUME_GT_SHARED_MIN and err.max() <= RESUME_GT_DIST):
+            raise AssertionError(f"mesh {what}: shared {frac} ({na} / {nb}), "
+                                 f"dist max |err| {err.max()}")
+        log(f"phase15b mesh {what}: observed voxels {nb} vs {na}, shared "
+            f"{frac:.6f} (>= {RESUME_GT_SHARED_MIN}), dist max |err| "
+            f"{err.max():.3g} m (<= {RESUME_GT_DIST})"
+            + ("" if frames is None else f"; resumed for {frames} frames"))
+    log(f"phase15 scan3d runs (4 of them) {out['scan_s']:.1f} s")
+
+    # 15c: the sharded render
+    r = out["render"]
+    if not (r["fields_equal"] and r["render_equal"] and r["march_equal"]
+            and r["launches"] == MESH_RANKS and r["cap_below_raises"]
+            and r["hits"] > 0.1 * rb.W * rb.H):
+        raise AssertionError(f"sharded render: {r}")
+    log(f"phase15c sharded render of the render scene (pose 4, {rb.W}x{rb.H}): "
+        f"{r['num_active']} blocks, active_cap {r['cap']}; assembled fields = "
+        f"the grid's rows bit for bit; depth, normal, hit = the single-card "
+        f"raycast of the same rays bit for bit ({r['hits']} hits); each rank's "
+        f"march of its {r['slice']} rays = the plain version bit for bit; "
+        f"{r['launches']} march launches over the ranks; a cap below num_active "
+        f"raises; {r['ms']:.2f} ms per render (host clock), collectives "
+        f"{r['collectives'][0]} calls, {r['collectives'][1]} bytes")
+
+    # 15d: BA
+    b = out["ba"]
+    e_ok = all(abs(x - y) <= BA_E_RTOL * abs(y)
+               for x, y in zip(b["energies"], b["ref_energies"]))
+    if not (e_ok and b["pose_err"] <= BA_POSE_ATOL
+            and b["dist_miss"] <= BA_OUTLIERS * b["V"]):
+        raise AssertionError(f"sharded BA vs single card: {b}")
+    log(f"phase15d sharded BA alternation F={b['F']} V={b['V']} over "
+        f"{MESH_RANKS} ranks vs one card: energies {b['energies'][0]:.6g} / "
+        f"{b['energies'][1]:.6g} vs {b['ref_energies'][0]:.6g} / "
+        f"{b['ref_energies'][1]:.6g} (rtol {BA_E_RTOL}), poses max |err| "
+        f"{b['pose_err']:.3g} (atol {BA_POSE_ATOL}), dist max |err| "
+        f"{b['dist_err']:.3g} with {b['dist_miss']} voxels beyond atol "
+        f"{BA_DIST_ATOL} + rtol {BA_DIST_RTOL}; {b['ms']:.2f} ms per "
+        f"alternation (median of {[float(f'{x:.2f}') for x in b['runs']]}; "
+        f"phase 7 on one card {ba_ms_7:.2f} ms); collectives "
+        f"{b['collectives'][0]} calls, {b['collectives'][1]} bytes")
+    with open(os.path.join(spec["photoba"], "metrics.json")) as f:
+        pm = json.load(f)
+    es = pm["ba_energies"]
+    if not (pm["mesh"]["devices"] == MESH_RANKS and es[-1] < 0.9 * es[0]
+            and all(np.isfinite(es))):
+        raise AssertionError(f"photoba --sharded-ba: {pm}")
+    log(f"phase15d photoba --sharded-ba on the textured spheres: "
+        f"{pm['keyframes']} keyframes, {(len(es) - 1) // 2} BA iterations in "
+        f"{timer_ms(pm, 'Photometric BA'):.1f} ms, energy {es[0]:.6g} -> "
+        f"{es[-1]:.6g}")
+    # 15e: the fusion kernels on a rank's real inputs
+    fz = out["fusion"]
+    if not (fz["scatter_ok"] and fz["merge_equal"]):
+        raise AssertionError(f"mesh fusion kernels vs plain: {fz}")
+    log(f"phase15e the fusion kernels on the mesh path, golden frame 5 from "
+        f"ground-truth poses: each rank's {fz['samples']} samples (its quarter) "
+        f"into the compact accumulator of the frame's {fz['blocks']} touched "
+        f"blocks, scatter kernel vs plain max |err| {fz['scatter_err']:.3g} "
+        f"(atol {ATOL} + rtol {RTOL}); merge_clear on each rank's shard "
+        f"({fz['na_local']} allocated slots on rank 0) = plain bit for bit")
+
+    paths = {f"phase 15 (scan3d --devices {MESH_RANKS})": (launches,
+                                                           FUSION_KERNELS),
+             "phase 15 (sharded render)": ({"raycast_march": r["launches"]},
+                                           ("raycast_march",))}
+    return paths, {"scatter": fz["scatter_err"], "merge": 0.0, "march": 0.0}
+
+
 def main():
     import torch
 
@@ -1569,9 +2022,13 @@ def main():
                      "--no-noise", "--device", "cuda"])
     ba_launches = phase_photoba(ba_data, ba_frames)
     phase_photoba_recovery()
-    phase_ba_scale()
+    ba_ms = phase_ba_scale()
     scene, kstats["march"] = phase_march()
     render_launches = phase_render(scene)
+    # phase 15's ranks load the render scene's grid from here
+    mesh_scene = {"path": os.path.join(WORK, "scene_grid"), "gcfg": scene[1],
+                  "fcfg": scene[2], "pose": scene[4][4]}
+    save_grid_prefix(scene[0], mesh_scene["path"])
     del scene
     torch.cuda.empty_cache()
     base_launches = phase_ablation_and_resume(data, n_frames, straight,
@@ -1585,6 +2042,10 @@ def main():
     paths.update(phase_box())
     paths.update(phase_loaders(data, n_frames))
     paths.update(phase_noisy())
+    mesh_paths, mesh_errs = phase_mesh(data, straight, ba_ms, mesh_scene)
+    paths.update(mesh_paths)
+    for k, err in mesh_errs.items():
+        kstats[k]["max_abs_err"] = max(kstats[k]["max_abs_err"], err)
     for path, (counts, kernels) in paths.items():
         if any(counts[k] <= 0 for k in kernels):
             raise AssertionError(f"{path} launched no kernel: {counts}")

@@ -12,7 +12,14 @@ always keeping the last), runs PhotometricOptimizer.optimize() (alternating
 pose/dist solves), then the ColorUpsampler computes subvoxel albedo and
 exports the HR colored mesh + cloud (:300-311).
 
-Not yet ported (exits with a message): `--sharded-ba`.
+`--sharded-ba` shards BA over the surface-voxel axis across a group of
+ranks (`parallel/`): the ranks of the torchrun-style group the process was
+started in, else one rank per local card (one rank for `--device cpu`).
+Phase 1 keeps its visibility bits, so it runs single-device on rank 0 (as
+in the JAX app), which broadcasts the BA problem; every rank runs the
+sharded alternations, and rank 0 writes every output. The other ranks wait
+for phase 1 in that broadcast, which fails after the group's timeout
+(`parallel.mesh.DEFAULT_TIMEOUT_S`, 300 s).
 
 Usage:  python -m gradient_sdf_tpu_torch.apps.photoba --input <dir> [...]
 """
@@ -71,7 +78,7 @@ def build_parser():
                         "the reference binary on COLORED data")
     p.add_argument("--sharded-ba", action="store_true",
                    help="shard BA over the surface-voxel axis across all "
-                        "local devices (not yet ported)")
+                        "local devices (summed pose systems)")
     p.add_argument("--keyframe-gap", dest="keyframe_gap", type=int,
                    default=None,
                    help="override dist_to_last_keyframe gap (reference "
@@ -106,22 +113,9 @@ def sample_keyframes(items: list, max_num: int) -> list:
     return out
 
 
-def run_photoba(args) -> dict:
-    if args.sharded_ba:
-        raise SystemExit("--sharded-ba: not yet ported to the PyTorch package "
-                         "(use gradient_sdf_tpu.apps.photoba)")
-    dev = device_mod.require(args.device)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    def on_dev(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
-
-    T = Timer()
+def _config(args) -> cfg_mod.PipelineConfig:
     cfg = cfg_mod.preset(args.data_type)
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg,
         grid=dataclasses.replace(cfg.grid, voxel_size=args.voxel_size),
         fusion=dataclasses.replace(cfg.fusion, trunc_voxels=args.trunc,
@@ -134,6 +128,55 @@ def run_photoba(args) -> dict:
                 ("max_recorded_keyframes", args.max_recorded_keyframes),
             ) if v is not None}),
     )
+
+
+def run_photoba(args) -> dict:
+    """Run PhotoBA; returns the metrics (rank 0's with `--sharded-ba`)."""
+    if not args.sharded_ba:
+        return _run(args, None)
+    from ..parallel import distributed
+    from ..parallel import mesh as mesh_mod
+
+    if mesh_mod.in_group():
+        return _run_rank(args)
+    if distributed.init(device=args.device):
+        try:
+            return _run_rank(args)
+        finally:
+            torch.distributed.destroy_process_group()
+    dev = device_mod.require(args.device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return mesh_mod.launch(_run_rank, n, args, device=args.device)
+
+
+def _run_rank(args):
+    """One rank of a `--sharded-ba` run: the mesh over the whole group."""
+    import contextlib
+
+    from ..parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.make_mesh(_config(args).parallel.num_devices,
+                              device=args.device)
+    if mesh.rank == 0:
+        return _run(args, mesh)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> dict:
+    dev = device_mod.require(args.device if mesh is None else mesh.device)
+    if mesh is not None and mesh.rank != 0:
+        return _ba_rank(args, mesh)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def on_dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    T = Timer()
+    cfg = _config(args)
     sharp_thr = cfg.photo_ba.sharpness_threshold
 
     loader = loaders.make_loader(args.data_type, args.input)
@@ -283,23 +326,28 @@ def run_photoba(args) -> dict:
     problem, state = photo_ba.build_problem(
         sdf_map.grid, sdf_map.vis, slots, images, poses, K, gcfg_live
     )
+    if mesh is not None:
+        from ..parallel import sharding
+
+        problem, state = sharding.broadcast_ba(mesh, problem, state)
     # the optimizer owns the pose snapshots at the reference's exact points
     # (before BA + every optimize() exit, PhotometricOptimizer.cpp:614,647,
     # 653,660) so an aborted BA still leaves the latest poses on disk
     opt = photo_ba.PhotometricOptimizer(
         problem, state, gcfg_live, cfg.photo_ba,
-        coupled_poses=args.coupled_poses,
+        coupled_poses=args.coupled_poses, mesh=mesh,
         save_path=args.results, key_stamps=[k["stamp"] for k in kfs],
     )
     T.tic()
     converged = opt.optimize()
+    state = opt.full_state()
     sync()
     T.toc("Photometric BA")
 
-    R_opt, t_opt = opt.state.R.cpu().numpy(), opt.state.t.cpu().numpy()
+    R_opt, t_opt = state.R.cpu().numpy(), state.t.cpu().numpy()
     opt_poses = [(R_opt[i], t_opt[i]) for i in range(len(kfs))]
     sdf_map.grid = photo_ba.write_back_dist(
-        sdf_map.grid, opt.problem, opt.state, gcfg_live
+        sdf_map.grid, problem, state, gcfg_live
     )
 
     # Phase 3: color upsampling + HR exports (the images are on the device
@@ -328,10 +376,29 @@ def run_photoba(args) -> dict:
         "timers": T.summary(),
         "device": str(dev),
     }
+    if mesh is not None:
+        metrics["mesh"] = {"devices": mesh.size, "backend": mesh.backend,
+                           "ranks_per_card": mesh.ranks_per_card()}
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump(metrics, f, indent=2)
     return metrics
+
+
+def _ba_rank(args, mesh):
+    """A rank other than 0 of a `--sharded-ba` run: rank 0's BA problem,
+    then the same sharded alternations; writes nothing."""
+    from ..parallel import sharding
+
+    cfg = _config(args)
+    problem, state = sharding.broadcast_ba(mesh, None, None)
+    # BA reads the grid config's voxel size only, which growth keeps
+    opt = photo_ba.PhotometricOptimizer(
+        problem, state, cfg.grid, cfg.photo_ba,
+        coupled_poses=args.coupled_poses, mesh=mesh, verbose=False)
+    opt.optimize()
+    opt.full_state()
+    return None
 
 
 def main(argv=None):

@@ -18,8 +18,18 @@ the third processed frame into DIR.
 
 The loop is synchronous and reference-exact: each frame's convergence and
 growth flags are read before the next frame starts, so `--merged-step` and
-`--sync-growth-checks` are accepted as no-ops. Not yet ported (exits with
-a message): `--devices > 1`.
+`--sync-growth-checks` are accepted as no-ops.
+
+`--devices N` (N > 1, grad-sdf only) runs the reconstruction on a
+(rays x blocks) mesh of N ranks (`parallel/`): tracking residuals split
+over the ray axis, the volume's per-voxel storage over `--block-parallel`
+ranks of the block axis (auto: 2 when N is even, else 1). A process that
+is already a rank of a group of N (`parallel.mesh.launch`, or torchrun's
+environment variables, `parallel.distributed.init`) runs as that rank;
+otherwise the app starts N local ranks itself. Every rank loads its own
+frames; rank 0 writes the poses, PLYs, dumps and metrics, and the metrics
+gain a `mesh` record (backend, ranks per card, kernel launches summed over
+the ranks, collectives).
 
 Usage:  python -m gradient_sdf_tpu_torch.apps.scan3d --input <dir> [...]
 """
@@ -105,9 +115,15 @@ def build_parser():
                    help="scale fused sample distances by the incidence "
                         "cosine (point-to-plane TSDF; non-parity)")
     p.add_argument("--devices", type=int, default=0,
-                   help="multi-device run (not yet ported; 0/1 = one device)")
+                   help="run on a (rays x blocks) mesh of N ranks "
+                        "(torch.distributed): tracking residuals split over "
+                        "rays, the volume's per-voxel storage over blocks "
+                        "(1/D_b per rank). grad-sdf only. 0/1 = one device")
     p.add_argument("--block-parallel", dest="block_parallel", type=int,
-                   default=0, help="(multi-device; not yet ported)")
+                   default=0,
+                   help="ranks on the block (grid-storage) axis; must divide "
+                        "--devices. 0 = auto (2 when --devices is even, "
+                        "else 1); the rest go to the ray axis")
     p.add_argument("--merged-step", dest="merged_step", action="store_true",
                    help="no-op: tracking and fusion already run back to "
                         "back with identical semantics")
@@ -115,12 +131,6 @@ def build_parser():
                    help="torch device to run on (default cuda; the run "
                         "fails rather than fall back if it is missing)")
     return p
-
-
-def _not_ported(args):
-    if args.devices > 1:
-        return "--devices > 1"
-    return None
 
 
 def _device(name: str) -> torch.device:
@@ -132,12 +142,70 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def run_scan(args) -> dict:
-    missing = _not_ported(args)
-    if missing:
-        raise SystemExit(f"{missing}: not yet ported to the PyTorch package "
-                         "(use gradient_sdf_tpu.apps.scan3d)")
-    dev = _device(args.device)
+def run_scan(args, *, check_replicated: bool = False) -> dict:
+    """Run Scan3D; returns the metrics (rank 0's on a mesh).
+    `check_replicated` (mesh runs) holds the ranks' replicated state equal
+    after every frame (`sharding.check_replicated`); the tests and the
+    card's smoke use it."""
+    if args.devices <= 1:
+        return _run(args, None, check_replicated)
+    if args.scan_type != "grad-sdf":
+        raise SystemExit("--devices requires --scan-type grad-sdf "
+                         "(sharded tracking is the gradient path)")
+    bp = args.block_parallel or (2 if args.devices % 2 == 0 else 1)
+    if args.devices % bp:
+        raise SystemExit(f"--block-parallel {bp} does not divide --devices "
+                         f"{args.devices}")
+    from ..parallel import distributed
+    from ..parallel import mesh as mesh_mod
+
+    if mesh_mod.in_group():
+        return _run(args, bp, check_replicated)
+    if distributed.init(device=args.device):
+        try:
+            return _run(args, bp, check_replicated)
+        finally:
+            torch.distributed.destroy_process_group()
+    return mesh_mod.launch(_run, args.devices, args, bp, check_replicated,
+                           device=args.device)
+
+
+def _launch_counts():
+    from ..ops.kernels import merge_clear, raycast_march, scatter_add
+
+    return {"scatter_add": scatter_add.launch_count,
+            "merge_clear": merge_clear.launch_count,
+            "raycast_march": raycast_march.launch_count}
+
+
+def _run(args, block_parallel, check_replicated) -> dict:
+    """The frame loop, on one device (`block_parallel` None) or as one rank
+    of a mesh of `args.devices` ranks."""
+    mesh = None
+    if block_parallel is not None:
+        import contextlib
+
+        from ..parallel import mesh as mesh_mod
+
+        mesh = mesh_mod.make_mesh(args.devices, block_parallel, args.device)
+        if mesh.rank != 0:   # one rank speaks
+            with open(os.devnull, "w") as quiet, \
+                    contextlib.redirect_stdout(quiet):
+                return _loop(args, mesh, check_replicated)
+    return _loop(args, mesh, check_replicated)
+
+
+def _loop(args, mesh, check_replicated) -> dict:
+    if mesh is not None:
+        from ..parallel import mesh as mesh_mod
+        from ..parallel import sharding
+
+        dev = mesh.device
+        launches0 = _launch_counts()
+        coll0 = (mesh_mod.calls, mesh_mod.nbytes)
+    else:
+        dev = _device(args.device)
+    writes = mesh is None or mesh.rank == 0
     T = Timer()
     cfg = cfg_mod.preset(args.data_type)
     fusion_stride = max(1, args.fusion_stride)
@@ -152,6 +220,8 @@ def run_scan(args) -> dict:
             fusion_stride=fusion_stride,
             cosine_correction=args.cosine_fusion,
         ),
+        parallel=dataclasses.replace(
+            cfg.parallel, num_devices=mesh.size if mesh is not None else None),
     )
 
     loader = loaders.make_loader(args.data_type, args.input)
@@ -212,6 +282,10 @@ def run_scan(args) -> dict:
         # the fusion counter, say where to pick up
         first = args.first + (len(state["poses"]) or state["counter"])
         print(f"Resumed at frame {first} ({state['counter']} frames integrated)")
+    if mesh is not None:
+        # after a possible resume, so that the restored grid is sharded
+        sdf_map.attach_mesh(mesh)
+        print(f"Mesh: {mesh.describe()}")
     ckpt_path = os.path.join(args.results, "checkpoint.npz")
 
     for frame in loader.frames(first, last):
@@ -240,6 +314,8 @@ def run_scan(args) -> dict:
             prof = torch.profiler.profile(activities=acts)
             prof.start()
         t_frame = time.perf_counter()
+        if mesh is not None:
+            coll_frame = (mesh_mod.calls, mesh_mod.nbytes)
         depth = on_dev(frame.depth)
         entry = {"frame": i, "track_ms": None, "fuse_ms": None, "gn_iters": None}
         fresh = i == first and not resumed   # the frame that starts the map
@@ -261,10 +337,15 @@ def run_scan(args) -> dict:
             else:
                 R_init, t_init = R_cur, t_cur
             # grid/fusion config come from the map: growth changes them
-            res = tracker_mod.track_frame(
-                sdf_map.grid, depth, K, R_init, t_init,
-                sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker,
-                mode=track_mode)
+            if mesh is not None:
+                res = sharding.sharded_track_frame(
+                    mesh, sdf_map.grid, depth, K, R_init, t_init,
+                    sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker)
+            else:
+                res = tracker_mod.track_frame(
+                    sdf_map.grid, depth, K, R_init, t_init,
+                    sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker,
+                    mode=track_mode)
             _sync(dev)
             entry["track_ms"] = T.toc("Point optimization") * 1e3
             entry["gn_iters"] = res.num_iters
@@ -278,6 +359,13 @@ def run_scan(args) -> dict:
             else:
                 invalid_frames.append(i)
         entry["frame_ms"] = (time.perf_counter() - t_frame) * 1e3
+        if mesh is not None:
+            entry["collective_calls"] = mesh_mod.calls - coll_frame[0]
+            entry["collective_bytes"] = mesh_mod.nbytes - coll_frame[1]
+            if check_replicated:
+                sharding.check_replicated(
+                    mesh, sdf_map.grid, R_cur, t_cur,
+                    flags=(i in invalid_frames, sdf_map.counter))
         frame_log.append(entry)
         pose_entries.append((frame.timestamp, R_cur.cpu().numpy(),
                              t_cur.cpu().numpy()))
@@ -292,9 +380,10 @@ def run_scan(args) -> dict:
         if k and sdf_map.counter % k == 0:
             ckpt.save_state(ckpt_path, sdf_map.grid, vis=sdf_map.vis,
                             counter=sdf_map.counter, poses=pose_entries,
-                            grid_cfg=sdf_map.cfg.grid)
+                            grid_cfg=sdf_map.cfg.grid, mesh=mesh)
 
-    tumio.write_trajectory(pose_path, pose_entries)
+    if writes:
+        tumio.write_trajectory(pose_path, pose_entries)
 
     prefix = os.path.join(args.results, "gradient_sdf")
     T.tic()
@@ -320,6 +409,20 @@ def run_scan(args) -> dict:
         "device": str(dev),
         "frame_log": frame_log,
     }
+    if mesh is not None:
+        # kernel launches of this run, summed over the ranks
+        names = sorted(launches0)
+        counts = torch.tensor([_launch_counts()[k] - launches0[k]
+                               for k in names], dtype=torch.int64, device=dev)
+        counts = mesh_mod.psum(counts, mesh, count=False).tolist()
+        metrics["mesh"] = {
+            "devices": mesh.size, "rays": mesh.shape[0],
+            "blocks": mesh.shape[1], "backend": mesh.backend,
+            "ranks_per_card": mesh.ranks_per_card(),
+            "kernel_launches": dict(zip(names, counts)),
+            "collective_calls": mesh_mod.calls - coll0[0],
+            "collective_bytes": mesh_mod.nbytes - coll0[1],
+        }
 
     # ATE vs an evaluation-only GT trajectory (main_scan_3d.cpp:278-280)
     if not gt_mode and args.eval_gt:
@@ -335,18 +438,18 @@ def run_scan(args) -> dict:
                 metrics["ate_pairs"] = int(res.num_pairs)
                 print(f"ATE RMSE vs {args.eval_gt}: {res.rmse:.4f} m "
                       f"({res.num_pairs} pairs)")
-    if args.metrics_json:
+    if args.metrics_json and writes:
         with open(args.metrics_json, "w") as f:
             json.dump(metrics, f, indent=2)
     return metrics
 
 
-def main(argv=None):
+def main(argv=None, *, check_replicated: bool = False):
     # float32 throughout, as the JAX package (which pins Precision.HIGHEST)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = build_parser().parse_args(argv)
-    return run_scan(args)
+    return run_scan(args, check_replicated=check_replicated)
 
 
 if __name__ == "__main__":

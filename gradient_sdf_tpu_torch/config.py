@@ -183,11 +183,13 @@ class CameraConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Device-mesh axes: rays sharded intra-host, voxel blocks cross-host."""
+    """Device-mesh axes: rays sharded intra-host, voxel blocks cross-host.
+    `num_devices` is `parallel.mesh.make_mesh`'s: the ranks of the mesh,
+    None for every rank of the process group."""
 
     ray_axis: str = "rays"
     block_axis: str = "blocks"
-    num_devices: Optional[int] = None  # None -> all local devices
+    num_devices: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,17 @@
 """GradSdfMap: the gradient-SDF volume model (flagship map type).
 
-Port of `gradient_sdf_tpu/models/grad_sdf.py`, single device: a stateful
-wrapper bundling the block-sparse grid, visibility bitfield, frame counter
-and camera LUT cache, with the reference's `Sdf` / `MapGradPixelSdf` API
+Port of `gradient_sdf_tpu/models/grad_sdf.py`: a stateful wrapper bundling
+the block-sparse grid, visibility bitfield, frame counter and camera LUT
+cache, with the reference's `Sdf` / `MapGradPixelSdf` API
 (`Sdf.h:113-145`): `setup / update / tsdf / weights / extract_mesh /
 extract_pc / save_sdf`. Tensors live on `device`: the CUDA card by default,
 `device="cpu"` for tests and CPU callers.
+
+`attach_mesh` switches a map to multi-device operation on a rank mesh
+(`parallel/`): the grid's per-voxel storage is block-sharded and `update`
+fuses through `sharding.sharded_fuse_frame`. Every rank then calls every
+method: the queries and exports assemble the whole grid (a collective),
+and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ class GradSdfMap:
         self.counter = 0
         # capacity/world-range growth events, dumped by scan3d --metrics-json
         self.growth_events: list = []
+        self.mesh = None  # set by attach_mesh for multi-device operation
         self.cache: Optional[normals.NormalEstimatorCache] = None
         kf_words = max(1, -(-cfg.photo_ba.max_recorded_keyframes // 32))
         # uint32 bit patterns held in int32 (see fusion._merge_vis)
@@ -45,6 +52,35 @@ class GradSdfMap:
                          kf_words), dtype=torch.int32, device=self.device)
             if with_vis else None
         )
+
+    # -- multi-device -------------------------------------------------------
+    def attach_mesh(self, mesh):
+        """Run this map on `mesh` (`parallel.mesh.Mesh`, one per rank): the
+        grid's per-voxel storage is resident-sharded over the block axis
+        (`sharding.shard_grid`, 1/D_b of the fields per rank) on the rank's
+        device, and `update` fuses through `sharded_fuse_frame`; growth
+        re-shards. Call after a checkpoint restore (scan3d does)."""
+        from ..parallel import sharding
+
+        assert self.vis is None, "visibility recording is single-device only"
+        self.mesh = mesh
+        self.device = mesh.device
+        self.grid = sharding.shard_grid(mesh, self.grid)
+        self.acc = fusion.new_accumulator(self.grid)
+        self.cache = None
+
+    def full_grid(self):
+        """The whole grid: the map's own, or on a mesh the fields assembled
+        over the block axis (a collective: every rank calls it)."""
+        if self.mesh is None:
+            return self.grid
+        from ..parallel import sharding
+
+        return sharding.gather_grid(self.mesh, self.grid)
+
+    def _writes(self) -> bool:
+        """Whether this process writes the map's files (rank 0 on a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # -- camera cache -------------------------------------------------------
     def ensure_cache(self, K: np.ndarray, width: int, height: int):
@@ -81,7 +117,13 @@ class GradSdfMap:
 
     def _fuse(self, depth, R, t, kf_slot):
         gcfg, fcfg = self.cfg.grid, self.cfg.fusion
-        if self.vis is not None:
+        if self.mesh is not None:
+            from ..parallel import sharding
+
+            self.grid = sharding.sharded_fuse_frame(
+                self.mesh, self.grid, depth, self.cache, R, t, gcfg, fcfg,
+                acc=self.acc)
+        elif self.vis is not None:
             self.grid, self.vis = fusion.fuse_frame(
                 self.grid, depth, self.cache, R, t, gcfg, fcfg,
                 vis=self.vis, kf_slot=kf_slot, acc=self.acc)
@@ -111,7 +153,13 @@ class GradSdfMap:
     def _grow(self):
         """Episodic host-side capacity doubling on overflow (vg.grow)."""
         old_blocks = self.cfg.grid.num_blocks
-        self.grid, new_gcfg = vg.grow(self.grid, self.cfg.grid)
+        # on a mesh doubling the capacity moves the shard boundaries: rows
+        # change owner, so gather, grow, and slice again
+        self.grid, new_gcfg = vg.grow(self.full_grid(), self.cfg.grid)
+        if self.mesh is not None:
+            from ..parallel import sharding
+
+            self.grid = sharding.shard_grid(self.mesh, self.grid)
         self.cfg = dataclasses.replace(self.cfg, grid=new_gcfg)
         # the accumulator is all-zero here, so growing it is a fresh one
         self.acc = fusion.new_accumulator(self.grid)
@@ -126,7 +174,8 @@ class GradSdfMap:
 
     def _grow_directory(self):
         """Enlarge the directory's world range when fusion reported samples
-        beyond it; the reporting frame's out-of-range samples are lost."""
+        beyond it; the reporting frame's out-of-range samples are lost.
+        Slots are kept, so no shard row moves on a mesh."""
         lost = int(self.grid.oob_samples)
         self.grid, new_gcfg, grew = vg.handle_oob_growth(
             self.grid, self.cfg.grid)
@@ -140,24 +189,27 @@ class GradSdfMap:
     # -- queries ------------------------------------------------------------
     def tsdf(self, points):
         """Semi-implicit SDF + gradient at world points (…,3)."""
-        phi, grad, _ = query.tsdf_grad(self.grid, self._tensor(points),
+        phi, grad, _ = query.tsdf_grad(self.full_grid(), self._tensor(points),
                                        self.cfg.grid, self.cfg.fusion)
         return phi, grad
 
     def weights(self, points):
-        return query.weights_at(self.grid, self._tensor(points), self.cfg.grid)
+        return query.weights_at(self.full_grid(), self._tensor(points),
+                                self.cfg.grid)
 
-    # -- export (host side) -------------------------------------------------
+    # -- export (host side; on a mesh every rank calls, rank 0 writes) -----
     def occupied(self):
         """Host view: (voxel_idx [M,3], dist [M], weight [M], grad [M,3])
         numpy arrays for all voxels in allocated blocks."""
-        return vg.host_voxels(self.grid, self.cfg.grid)
+        return vg.host_voxels(self.full_grid(), self.cfg.grid)
 
     def extract_pc(self, filename: str, min_weight: float = 5.0) -> bool:
         """Oriented point cloud export (MapGradPixelSdf.cpp:177-220):
         voxels with weight >= min_weight whose displacement d = dist * 1.2 ghat
         stays inside the half-voxel box emit point (center - d), normal -1.2 ghat."""
         vox, dist, weight, grad = self.occupied()
+        if not self._writes():
+            return True
         vs = self.cfg.grid.voxel_size
         scale = self.cfg.fusion.grad_scale
         norms = np.linalg.norm(grad, axis=-1)
@@ -172,7 +224,10 @@ class GradSdfMap:
     def extract_mesh(self, filename: str) -> bool:
         from ..ops import marching_cubes as mc
 
-        verts, faces = mc.extract_mesh(self.grid, self.cfg.grid)
+        grid = self.full_grid()
+        if not self._writes():
+            return True
+        verts, faces = mc.extract_mesh(grid, self.cfg.grid)
         return save_mesh_ply(filename, verts, faces)
 
     def save_sdf(self, filename: str) -> bool:
@@ -180,6 +235,8 @@ class GradSdfMap:
         (`MapGradPixelSdf.cpp:222-296`): grid_info + `lin_idx value` lines in
         files _sdf_d/_sdf_weight/_sdf_n0/_sdf_n1/_sdf_n2."""
         vox, dist, weight, grad = self.occupied()
+        if not self._writes():
+            return True
         return write_sdf_dump(
             filename, self.cfg.grid.voxel_size, vox, weight,
             [("_sdf_d.txt", dist), ("_sdf_weight.txt", weight),

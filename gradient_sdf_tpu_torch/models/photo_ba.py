@@ -42,7 +42,8 @@ reduction's order, not strictly in frame order (float32 sums agree with
 the JAX package to tolerance, not bit for bit). The largest temporary is
 the pose Jacobian, F*V*72 bytes (216 MB at F = 30, V = 100k); the coupled
 system keeps its voxel chunking. Float32 throughout: callers on the card
-keep TF32 off (`apps/photoba.main`). No voxel-sharded (`mesh=`) step yet.
+keep TF32 off (`apps/photoba.main`). With `mesh=` the optimizer shards the
+voxel axis over the ranks (`parallel/sharding.sharded_ba_step`).
 """
 
 from __future__ import annotations
@@ -234,16 +235,29 @@ def _weighted_systems(w, wh, r, Jc):
     return prod[:, 6], prod[:, :6]
 
 
-def solve_pose(problem: BAProblem, state: BAState, gcfg: GridConfig,
-               pcfg: PhotoBAConfig) -> BAState:
-    """Decoupled per-frame pose half-step (solvePose, :499-590)."""
+def pose_systems(problem: BAProblem, state: BAState, gcfg: GridConfig,
+                 pcfg: PhotoBAConfig):
+    """The decoupled pose step's per-frame systems (H [F,6,6], b [F,6]):
+    sums over the voxels, so a voxel-sharded step adds the ranks' ones."""
     A, Jc, valid, n, inv_n, mean_A = _pose_terms(problem, state, gcfg, pcfg)
     w = (valid & (n > 0)).to(torch.float32)
     b, H = _weighted_systems(w, w * (1.0 - inv_n), A - mean_A, Jc)
+    return H, b
+
+
+def apply_pose_systems(state: BAState, H: torch.Tensor,
+                       b: torch.Tensor) -> BAState:
+    """Solve every frame's 6x6 system and apply the steps."""
     eye = 1e-12 * torch.eye(6, dtype=H.dtype, device=H.device)
     # solve_ex does not raise on a singular H: a NaN step is skipped below
     delta = torch.linalg.solve_ex(H + eye, b)[0]
     return _apply_pose_delta(state, delta)
+
+
+def solve_pose(problem: BAProblem, state: BAState, gcfg: GridConfig,
+               pcfg: PhotoBAConfig) -> BAState:
+    """Decoupled per-frame pose half-step (solvePose, :499-590)."""
+    return apply_pose_systems(state, *pose_systems(problem, state, gcfg, pcfg))
 
 
 def _pose_full_system(problem: BAProblem, state: BAState, gcfg: GridConfig,
@@ -305,7 +319,21 @@ class PhotometricOptimizer:
 
     def __init__(self, problem: BAProblem, state: BAState, gcfg: GridConfig,
                  pcfg: PhotoBAConfig, *, coupled_poses: bool = False,
-                 verbose: bool = True, save_path=None, key_stamps=None):
+                 verbose: bool = True, mesh=None, save_path=None,
+                 key_stamps=None):
+        """With `mesh` (a `parallel.mesh.Mesh`; every rank passes the same
+        whole problem and state) each rank keeps its slice of the voxel
+        axis in `problem`/`state` and every step is `sharded_ba_step`;
+        `full_state()` gathers the whole dist vector. The sharded step is
+        the decoupled one."""
+        if mesh is not None:
+            from ..parallel import sharding
+
+            if coupled_poses:
+                raise ValueError("the voxel-sharded BA step is the decoupled "
+                                 "one (no coupled_poses with a mesh)")
+            problem, state = sharding.shard_ba(mesh, problem, state)
+        self.mesh = mesh
         self.problem = problem
         self.state = state
         self.gcfg = gcfg
@@ -319,15 +347,35 @@ class PhotometricOptimizer:
         self._solve_pose = solve_pose_full if coupled_poses else solve_pose
 
     def _energy(self) -> float:
-        return float(energy(self.problem, self.state, self.gcfg))
+        e = energy(self.problem, self.state, self.gcfg)
+        if self.mesh is not None:
+            from ..parallel import mesh as mesh_mod
+
+            e = mesh_mod.psum(e.reshape(1), self.mesh)[0]
+        return float(e)
 
     def _iteration(self):
         """One pose+dist step; returns (E_after_pose, E_after_dist)."""
+        if self.mesh is not None:
+            from ..parallel import sharding
+
+            self.state, e_pose, e_dist = sharding.sharded_ba_step(
+                self.mesh, self.problem, self.state, self.gcfg, self.pcfg)
+            return float(e_pose), float(e_dist)
         self.state = self._solve_pose(self.problem, self.state, self.gcfg,
                                       self.pcfg)
         e_pose = self._energy()
         self.state = solve_dist(self.problem, self.state, self.gcfg, self.pcfg)
         return e_pose, self._energy()
+
+    def full_state(self) -> BAState:
+        """The state with the whole dist vector (on a mesh: gathered from
+        every rank's slice, so every rank must call it)."""
+        if self.mesh is None:
+            return self.state
+        from ..parallel import sharding
+
+        return sharding.gather_ba_state(self.mesh, self.state)
 
     def save_poses(self, filename: str) -> bool:
         """Snapshot the CURRENT optimizer poses as a TUM trajectory —

@@ -176,6 +176,17 @@ def track_frame(
     valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
     packed = (_pack_fields(grid)
               if mode == "grad" and tcfg.packed_row_gather else None)
+    return gauss_newton(
+        lambda R, t: _residual_pass(grid, pts, valid, R, t, gcfg, fcfg,
+                                    packed, mode),
+        R0, t0, tcfg, dev)
+
+
+def gauss_newton(residual_pass, R0, t0, tcfg: TrackerConfig,
+                 dev) -> TrackResult:
+    """The GN loop of `track_frame` (module note) around
+    `residual_pass(R, t) -> (E, g, H, count)`; the sharded tracker
+    (`parallel/sharding.py`) passes its own pass."""
     conv_sq = tcfg.conv_threshold * tcfg.conv_threshold
     eye6 = 1e-12 * torch.eye(6, dtype=torch.float32, device=dev)
 
@@ -184,8 +195,7 @@ def track_frame(
     k, converged = 0, False
     E = cnt = None
     while k < tcfg.num_iterations and not converged:
-        E, g, H, cnt = _residual_pass(grid, pts, valid, R, t, gcfg, fcfg,
-                                      packed, mode)
+        E, g, H, cnt = residual_pass(R, t)
         # Gauss-Newton step; the tiny diagonal keeps the solve finite when
         # H is singular (no residuals). solve_ex does not raise on a
         # singular H: a NaN step is skipped below, as in the JAX loop.

@@ -199,6 +199,23 @@ def _ray_samples(rays: FrameRays, R: torch.Tensor, t: torch.Tensor,
     )
 
 
+def frame_samples(depth: torch.Tensor, cache: NormalEstimatorCache,
+                  R: torch.Tensor, t: torch.Tensor, gcfg: GridConfig,
+                  fcfg: FusionConfig) -> FrameSamples:
+    """A frame's fusion samples, independent of the grid: FALS normals, the
+    optional median blur, the pixel gates, the valid pixels compacted (one
+    host sync) and their sample walks. Sharded fusion
+    (`parallel/sharding.py`) computes the same samples on every rank."""
+    normal_img = compute_normals(cache, depth)
+    if fcfg.median_blur_depth:
+        depth = median_blur(depth, 5)
+    rays = _pixel_rays(depth, normal_img, cache, fcfg)
+    idx = torch.nonzero(rays.valid).reshape(-1)
+    rays = FrameRays(*(a[idx] for a in rays[:-1]),
+                     valid=torch.ones_like(idx, dtype=torch.bool))
+    return _ray_samples(rays, R, t, gcfg, fcfg)
+
+
 def _alloc_slots(grid: vg.VoxelGrid, s: FrameSamples, gcfg: GridConfig):
     """Block allocation + scatter-slot lookup for one sample batch. The
     claim insert and its re-lookup run only when some sample's block is
@@ -219,9 +236,9 @@ def _alloc_slots(grid: vg.VoxelGrid, s: FrameSamples, gcfg: GridConfig):
 
 def new_accumulator(grid: vg.VoxelGrid) -> torch.Tensor:
     """Zeroed frame accumulator for `grid`: f32 [nvox, 8], one 32-byte row
-    per voxel holding (w, wd, wn_x, wn_y, wn_z) and three floats of
-    padding."""
-    return _new_rows(grid.num_blocks * grid.voxels_per_block, grid.device)
+    per voxel of its per-voxel fields (a block shard's only, for a sharded
+    grid) holding (w, wd, wn_x, wn_y, wn_z) and three floats of padding."""
+    return _new_rows(grid.dist.numel(), grid.device)
 
 
 def _scatter_samples(acc, lin, s: FrameSamples, accumulate_gradients: bool):
@@ -283,14 +300,7 @@ def fuse_frame(
     (`new_accumulator(grid)`), all-zero again on return; without it one is
     allocated for this call. All tensors must be on the grid's device.
     """
-    normal_img = compute_normals(cache, depth)
-    if fcfg.median_blur_depth:
-        depth = median_blur(depth, 5)
-    rays = _pixel_rays(depth, normal_img, cache, fcfg)
-    idx = torch.nonzero(rays.valid).reshape(-1)
-    rays = FrameRays(*(a[idx] for a in rays[:-1]),
-                     valid=torch.ones_like(idx, dtype=torch.bool))
-    s = _ray_samples(rays, R, t, gcfg, fcfg)
+    s = frame_samples(depth, cache, R, t, gcfg, fcfg)
     grid, lin, ok = _alloc_slots(grid, s, gcfg)
     if acc is None:
         acc = new_accumulator(grid)

@@ -54,7 +54,10 @@ class VoxelGrid(NamedTuple):
 
     @property
     def num_blocks(self) -> int:
-        return self.dist.shape[0]
+        """Block capacity: the rows of `block_coords`, which a grid sharded
+        over a mesh's block axis keeps whole (its per-voxel fields hold only
+        the rank's rows; `parallel/sharding.py`)."""
+        return self.block_coords.shape[0]
 
     @property
     def voxels_per_block(self) -> int:

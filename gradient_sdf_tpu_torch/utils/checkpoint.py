@@ -27,10 +27,20 @@ FORMAT_VERSION = 2  # v2 adds the GridConfig geometry (dir_dim may have grown)
 
 def save_state(path: str, grid: vg.VoxelGrid, *, vis=None, counter: int = 0,
                poses=None, grid_cfg: Optional[GridConfig] = None,
-               extra: Optional[dict] = None):
+               extra: Optional[dict] = None, mesh=None):
     """poses: list of (timestamp, R [3,3], t [3]). `grid_cfg` persists the
     grid geometry — mandatory for runs where capacity or directory growth
-    fired (a stale dir_dim mis-linearizes every key on resume)."""
+    fired (a stale dir_dim mis-linearizes every key on resume). With
+    `mesh` the grid is a block shard (`parallel/sharding.py`): every rank
+    calls, the whole grid is gathered, and rank 0 writes the same file a
+    single-device run writes. On resume every rank loads it and the map is
+    sharded again (`GradSdfMap.attach_mesh`)."""
+    if mesh is not None:
+        from ..parallel import sharding
+
+        grid = sharding.gather_grid(mesh, grid)
+        if mesh.rank != 0:
+            return
     data = {"format_version": FORMAT_VERSION, "counter": counter}
     data.update(interop.grid_to_numpy(grid))
     if grid_cfg is not None:

@@ -80,14 +80,13 @@ def test_parser_has_every_jax_flag_plus_device():
     assert got["device"][1] == "cuda"
 
 
-@pytest.mark.parametrize("extra", [["--sharded-ba"]])
-def test_unported_options_exit_with_a_message(synth_dir, tmp_path, extra):
-    argv = ["--input", synth_dir, "--results", str(tmp_path / "o"),
-            "--device", "cpu"] + APP_ARGS + extra
-    with pytest.raises(SystemExit) as err:
-        tphotoba.main(argv)
-    assert "not yet ported" in str(err.value)
-    assert not os.path.exists(str(tmp_path / "o" / "_poses.txt"))
+@pytest.mark.parametrize("argv", [[], ["--sharded-ba"]])
+def test_sharded_ba_flag_parses_like_jax(argv):
+    """--sharded-ba is a switch in both apps, off by default."""
+    base = ["--input", "x"]
+    got = tphotoba.build_parser().parse_args(base + argv).sharded_ba
+    assert got == jphotoba.build_parser().parse_args(base + argv).sharded_ba
+    assert got == bool(argv)
 
 
 def test_default_device_is_the_card_and_fails_without_one(synth_dir, tmp_path):

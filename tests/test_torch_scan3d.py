@@ -396,12 +396,18 @@ def test_scan3d_device_cuda_raises_without_cuda(dataset, tmp_path):
                     "--pose-file", "gt_poses.txt"] + APP_ARGS)
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"],
-                                   ["--devices", "4", "--block-parallel", "2"]])
-def test_scan3d_unported_flags_exit(dataset, tmp_path, flags):
-    with pytest.raises(SystemExit, match="not yet ported"):
+@pytest.mark.parametrize("flags, message", [
+    (["--devices", "2", "--scan-type", "base-sdf"],
+     "--devices requires --scan-type grad-sdf"),
+    (["--devices", "4", "--block-parallel", "3"],
+     "--block-parallel 3 does not divide --devices 4")])
+def test_scan3d_mesh_flags_are_checked(dataset, tmp_path, flags, message):
+    """The JAX app's rules for --devices (grad-sdf only; --block-parallel
+    divides --devices), checked before any rank starts."""
+    with pytest.raises(SystemExit, match=message):
         tscan.main(["--input", dataset, "--results", str(tmp_path),
                     "--device", "cpu"] + APP_ARGS + flags)
+    assert not os.path.exists(os.path.join(str(tmp_path), "_poses.txt"))
 
 
 def test_scan3d_parser_accepts_every_reference_flag():
