@@ -28,7 +28,13 @@ group, through the apps' entry points: Scan3D --devices 4 tracking and from
 ground-truth poses against phases 4 and 5, a cut and resumed mesh run, a
 sharded render of the render scene bit for bit against the unsharded one,
 one sharded BA alternation at phase 7's scale point against one card, and
-PhotoBA --sharded-ba on phase 6b's textured spheres.
+PhotoBA --sharded-ba on phase 6b's textured spheres. Phase 16 replays
+phase 14's frames from a TUM folder whose PNGs cycle through filters 0-4:
+the folder read synchronously and through the decode-ahead reader (equal
+byte for byte), then Scan3D --data-type tum in turns decoding ahead and
+synchronously (load_ms, track_ms, fuse_ms, loop_fps, the reader's peak of
+resident images, ATE gated as phase 14's); 16b meshes phase 4's map through
+the C vertex dedup and through its plain twin, bit for bit.
 Every phase raises on failure, which ends the run non-zero. Needs one CUDA
 card; fails at once without one. Scratch files go to `smoke_out/` under the
 checkout.
@@ -37,9 +43,11 @@ Output: one line of numbers per phase; then the card's name and power
 limit (`nvidia-smi`), a JSON line `{"kernels": [...]}` with each kernel's
 launch count on the main paths (each counted from zero, and named in
 `launches_counted_in`), its largest error against the plain version, its
-time beside the plain version's, the bound and (for the scatter) the bare
-`index_add_` as the library yardstick, on golden frame 5's real samples
-and, for the march, on the render scene's rays; and last
+time beside the plain version's, the bound and (for the scatter and its
+F = 1 launch, `scatter_add_rows`) the bare `index_add_` as the library
+yardstick, on golden frame 5's real samples and, for the march, on the
+render scene's rays; phase 2b also times an empty kernel, the launch floor
+beside `merge_clear`; and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -293,7 +301,7 @@ def phase_kernel():
         f"(index_add_) {lib:.4f}; byte bound "
         f"{scatter_bound_ms(N_SAMPLES, idx64.numel(), distinct, nf=1):.5f} ms; "
         f"scatter_add_rows with its zero fill {whole:.4f} ms")
-    return max(errs.values())
+    return max(errs.values()), errs["rows F=1"]
 
 
 def phase_merge_and_in_situ():
@@ -380,9 +388,17 @@ def phase_merge_and_in_situ():
     rows_lib = median_ms(lambda: narrow1.index_add_(0, lin64, kept1))
     rows_bound = scatter_bound_ms(n, int(inmap.sum()), distinct, nf=1)
     del narrow1
+    # `scatter_add_rows` itself on the same weights, against its plain version
+    got1 = sa.scatter_add_rows(lin, s.w, nvox)
+    want1 = sa.scatter_add_rows_reference(lin, s.w, nvox)
+    rows_err = float((got1 - want1).abs().max())
+    if not torch.allclose(got1, want1, atol=ATOL, rtol=RTOL):
+        raise AssertionError(f"in-situ scatter_add_rows vs plain max |err| {rows_err}")
+    del got1, want1
     log(f"phase2b scatter F=1 (scatter_add_rows' launch) in situ, frame 5: "
         f"kernel {rows_ms:.4f} ms, plain {rows_plain:.4f} ms, library_ms "
-        f"(index_add_) {rows_lib:.4f}, byte bound {rows_bound:.5f} ms")
+        f"(index_add_) {rows_lib:.4f}, byte bound {rows_bound:.5f} ms; "
+        f"scatter_add_rows vs plain max_abs_err {rows_err:.3g}")
     merge_ms = median_ms(lambda: mc.merge_clear(acc, *spare, grid.num_active))
     merge_plain = median_ms(lambda: mc.merge_clear_reference(
         acc, *spare, grid.num_active))
@@ -395,6 +411,27 @@ def phase_merge_and_in_situ():
     # written
     scatter_bound = scatter_bound_ms(n, int(inmap.sum()), distinct)
     merge_bound = merge_bound_ms(rows)
+    # the launch floor: a kernel that does nothing, timed the same way, at
+    # merge_clear's launch shape (its grid-stride loop's blocks x 256) and
+    # at one warp
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    merge_blocks = min(-(-nvox // 256), 132 * 8)
+
+    def empty(blocks, threads):
+        if lib.gsdf_empty_launch(blocks, threads, stream) != 0:
+            raise AssertionError("the empty kernel did not launch")
+
+    empty_ms = median_ms(lambda: empty(merge_blocks, 256))
+    empty_warp_ms = median_ms(lambda: empty(1, 32))
+    above = merge_ms - empty_ms
+    share = merge_bound / above if above > 0 else float("inf")
+    log(f"phase2b launch floor: an empty kernel {empty_ms:.4f} ms at "
+        f"merge_clear's {merge_blocks} x 256, {empty_warp_ms:.4f} ms at 1 x 32; "
+        f"merge_clear {merge_ms:.4f} ms is {above:.4f} ms above the floor, "
+        f"where its byte bound {merge_bound:.5f} ms is {share * 100:.1f}% of it")
     log(f"phase2b merge_clear + in situ, frame 5: N={n} samples, {distinct} distinct voxels, "
         f"{active} blocks; fuse_scatter_path_ms: payload build 0 (the kernel "
         f"takes the five fields), accumulator zero 0 (merge_clear clears), "
@@ -409,7 +446,10 @@ def phase_merge_and_in_situ():
                     "library_ms": scatter_lib},
         "merge": {"max_abs_err": merge_err, "ms": merge_ms,
                   "plain_ms": merge_plain, "bound_ms": merge_bound,
-                  "library_ms": None},
+                  "library_ms": None, "empty_launch_ms": empty_ms},
+        "rows": {"max_abs_err": rows_err, "ms": rows_ms,
+                 "plain_ms": rows_plain, "bound_ms": rows_bound,
+                 "library_ms": rows_lib},
     }
 
 
@@ -418,7 +458,7 @@ def golden_frame():
     import numpy as np
     from gradient_sdf_tpu_torch.data import synth
 
-    world = synth.random_spheres(seed=2)
+    world = synth.random_spheres(seed=2, device="cpu")
     R, t = synth.orbit_poses(n=6, radius=2.0, arc=np.deg2rad(4.0))[0]
     depth = synth.quantize_depth(synth.render_depth(world, R, t))
     return depth.numpy(), R, t
@@ -523,7 +563,9 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    return {name: mod.launch_count for name, mod in kernel_modules().items()}
+    counts = {name: mod.launch_count for name, mod in kernel_modules().items()}
+    counts["scatter_add_rows"] = kernel_modules()["scatter_add"].rows_launch_count
+    return counts
 
 
 FUSION_KERNELS = ("scatter_add", "merge_clear")
@@ -1528,7 +1570,7 @@ def phase_noisy():
         raise AssertionError(f"noisy grad-sdf: ATE {g['ate_rmse']} m (limit "
                              f"{NOISY_ATE_LIMIT}), {len(g['invalid_frames'])} "
                              f"unconverged (limit {NOISY_UNCONVERGED_MAX})")
-    return paths
+    return paths, g
 
 
 # ---------------------------------------------------------------------------
@@ -1976,6 +2018,160 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
     return paths, {"scatter": fz["scatter_err"], "merge": 0.0, "march": 0.0}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: a replayed TUM folder, decoded ahead
+# ---------------------------------------------------------------------------
+
+def frame_digest(frame):
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in (frame.color, frame.depth):
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def decode_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name.startswith("gsdf-decode")]
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def mesh_parity(data, smi, device="cuda"):
+    """16b: phase 4's map (the golden frames fused at phase 4's poses) meshed
+    through `extract_mesh` (the C dedup) and through the plain twin on the
+    same triangle soup, with a seeded colour field: vertices, faces and
+    colours equal bit for bit. Host-clock times of both dedups and of
+    `np.unique` (the port's former dedup) on that soup."""
+    import numpy as np
+    import torch
+    from gradient_sdf_tpu_torch.data import loaders
+    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+    from gradient_sdf_tpu_torch.ops import marching_cubes as mc
+    from gradient_sdf_tpu_torch.utils import tumio
+
+    dev = torch.device(device)
+    poses = tumio.read_trajectory(os.path.join(WORK, "track", "_poses.txt"))
+    loader = loaders.make_loader("synth", data)
+    K = loader.load_intrinsics()
+    m = GradSdfMap(synth_cfg(0.02), device=dev)
+    for f in loader.frames():
+        m.update(torch.as_tensor(f.depth, device=dev), K,
+                 tuple(torch.as_tensor(a, device=dev) for a in poses[f.index][1:]))
+    gcfg = m.cfg.grid
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cf = torch.rand((gcfg.num_blocks, gcfg.block_shape ** 3, 3), device=dev,
+                    generator=gen)
+    verts, faces, cols = mc.extract_mesh(m.grid, gcfg, color_field=cf)
+    soup, _, soup_cols = mc.extract_mesh(m.grid, gcfg, dedup=False, color_field=cf)
+    q = gcfg.voxel_size * 1e-4
+    pv, pf, pc = mc.weld(soup, soup_cols, q, mc.dedup_vertices_reference)
+    equal = {"vertices": np.array_equal(verts, pv), "faces": np.array_equal(faces, pf),
+             "colours": np.array_equal(cols, pc)}
+    if not all(equal.values()) or len(faces) == 0:
+        raise AssertionError(f"mesh dedup C vs plain twin: {equal}, {len(faces)} faces")
+    c_ms = host_ms(lambda: mc.dedup_vertices(soup, q))
+    plain_ms = host_ms(lambda: mc.dedup_vertices_reference(soup, q), reps=1)
+    unique_ms = host_ms(lambda: np.unique(np.round(soup / q).astype(np.int64), axis=0,
+                                          return_index=True, return_inverse=True))
+    log(f"phase16b mesh of phase 4's map ({int(m.grid.num_active)} blocks): "
+        f"{len(soup)} soup vertices -> {len(verts)} vertices, {len(faces)} faces; "
+        f"extract_mesh (C dedup) = plain twin bit for bit (vertices, faces, "
+        f"colours); dedup ms (host clock, median of 5; plain: one call): C "
+        f"{c_ms:.2f}, plain twin {plain_ms:.1f}, np.unique {unique_ms:.2f} [{smi}]")
+
+
+def phase_replay(noisy14, smi):
+    """Phase 16: phase 14's 60 noisy VGA frames replayed from a TUM folder
+    whose PNGs cycle through filters 0-4. The folder is read synchronously
+    (decode ms per image and per frame) and through the decode-ahead reader
+    (every frame byte-equal to the synchronous read); then `scan3d
+    --data-type tum` runs it in turns decoding ahead and synchronously:
+    load_ms, track_ms and fuse_ms beside phase 14's, loop_fps beside the
+    synchronous-equivalent fps, the reader's peak of resident images;
+    grad-SDF ATE gated as phase 14's. No reader thread may outlive a run."""
+    from gradient_sdf_tpu_torch.data import loaders
+    from gradient_sdf_tpu_torch.tools import replay_bench as rb
+
+    folder = os.path.join(WORK, "tum_replay")
+    t0 = time.perf_counter()
+    n = rb.tum_replay_folder(os.path.join(WORK, "noisy"), folder)
+    write_s = time.perf_counter() - t0
+    loader = loaders.make_loader("tum", folder)
+    specs = loader._frame_specs(0, None)
+    col_ms, dep_ms = [], []
+    for _, _, cp, dp in specs:
+        t0 = time.perf_counter()
+        loaders.load_color_png(cp)
+        t1 = time.perf_counter()
+        loaders.load_depth_png(dp, loader.unit)
+        col_ms.append((t1 - t0) * 1e3)
+        dep_ms.append((time.perf_counter() - t1) * 1e3)
+    sync_frame_ms, want = [], []
+    for frame, t_ask, t_got in loaders.timed(loader.frames(n_threads=0)):
+        sync_frame_ms.append((t_got - t_ask) * 1e3)
+        want.append(frame_digest(frame))
+    got = [frame_digest(f) for f in loader.frames()]
+    if len(want) != n or got != want:
+        differ = [k for k, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"decode-ahead frames vs synchronous: {len(got)} / "
+                             f"{len(want)} frames, frames {differ} differ")
+    if decode_threads():
+        raise AssertionError(f"reader threads alive after frames(): {decode_threads()}")
+    log(f"phase16 TUM replay folder: {n} VGA frames (phase 14's noisy spheres), "
+        f"PNG rows cycling through filters 0-4, written in {write_s:.1f} s; "
+        f"synchronous decode (host clock, median over the {n} frames): colour "
+        f"{median(col_ms):.2f} ms, depth {median(dep_ms):.2f} ms, per frame "
+        f"{median(sync_frame_ms):.2f} ms (n_threads=0); the decode-ahead reader's "
+        f"{n} frames = the synchronous read byte for byte [{smi}]")
+
+    # in turns: frames() decoding ahead (the default: 2 threads, a window of
+    # 16 images) and synchronously (n_threads=0)
+    s14 = rb.summary(noisy14)
+    paths = {}
+    for k, mode in enumerate(rb.MODES):
+        results = os.path.join(WORK, f"replay_{mode}_{k}")
+        reset_launch_counts()
+        m = rb.run_scan(folder, results, mode)
+        launches = launch_counts()
+        check_outputs(dict(m, invalid_frames=[]), results, launches, n)
+        if decode_threads():
+            raise AssertionError(f"reader threads alive after the app: {decode_threads()}")
+        if not (m["ate_rmse"] < NOISY_ATE_LIMIT
+                and len(m["invalid_frames"]) <= NOISY_UNCONVERGED_MAX):
+            raise AssertionError(f"replay {mode}: ATE {m['ate_rmse']} m (limit "
+                                 f"{NOISY_ATE_LIMIT}), {len(m['invalid_frames'])} "
+                                 f"unconverged (limit {NOISY_UNCONVERGED_MAX})")
+        paths[f"phase 16 (scan3d --data-type tum, {mode}, run {k})"] = (
+            launches, FUSION_KERNELS)
+        r = rb.summary(m)
+        fl = m["frame_log"]
+        # the same run's frames had each paid its synchronous decode
+        sync_fps = len(fl) / (sum(e["frame_ms"] for e in fl) + sum(sync_frame_ms)) * 1e3
+        reader = m["reader"]
+        log(f"phase16 scan3d --data-type tum, {mode} (run {k}; reader "
+            f"{reader['n_threads']} threads, window {reader['window']}, peak "
+            f"resident {reader['peak_resident']} images): load_ms median "
+            f"{r['load_ms_median']:.3f} p90 {r['load_ms_p90']:.3f} (frames "
+            f"1-{n - 1}), frame 0 {fl[0]['load_ms']:.2f}, frame 1 "
+            f"{fl[1]['load_ms']:.3f}; track_ms median {r['track_ms_median']:.2f}, "
+            f"fuse_ms median {r['fuse_ms_median']:.2f} (phase 14, same call: "
+            f"{s14['track_ms_median']:.2f} / {s14['fuse_ms_median']:.2f}); "
+            f"loop_fps {m['loop_fps']:.2f}, with each frame's synchronous decode "
+            f"added to its frame_ms {sync_fps:.2f} fps; ATE "
+            f"{m['ate_rmse'] * 1e3:.3f} mm, {len(m['invalid_frames'])} "
+            f"unconverged; kernel launches {launches} [{smi}]")
+    if decode_threads():
+        raise AssertionError(f"reader threads alive: {decode_threads()}")
+    return paths
+
+
 def main():
     import torch
 
@@ -1996,10 +2192,12 @@ def main():
     os.makedirs(WORK)
 
     phase_build()
-    synth_err = phase_kernel()
+    synth_err, synth_rows_err = phase_kernel()
     kstats = phase_merge_and_in_situ()
     kstats["scatter"]["max_abs_err"] = max(kstats["scatter"]["max_abs_err"],
                                            synth_err)
+    kstats["rows"]["max_abs_err"] = max(kstats["rows"]["max_abs_err"],
+                                        synth_rows_err)
     phase_fusion()
 
     from gradient_sdf_tpu_torch.apps import make_synth
@@ -2041,9 +2239,14 @@ def main():
              "phase 10 (scan3d base-sdf)": (base_launches, FUSION_KERNELS)}
     paths.update(phase_box())
     paths.update(phase_loaders(data, n_frames))
-    paths.update(phase_noisy())
+    noisy_paths, noisy14 = phase_noisy()
+    paths.update(noisy_paths)
     mesh_paths, mesh_errs = phase_mesh(data, straight, ba_ms, mesh_scene)
     paths.update(mesh_paths)
+    t16 = time.perf_counter()
+    paths.update(phase_replay(noisy14, smi))
+    mesh_parity(data, smi)
+    log(f"phase16 {time.perf_counter() - t16:.1f} s")
     for k, err in mesh_errs.items():
         kstats[k]["max_abs_err"] = max(kstats[k]["max_abs_err"], err)
     for path, (counts, kernels) in paths.items():
@@ -2065,6 +2268,17 @@ def main():
         "launches_counted_in": counted_in("scatter_add")[1],
         "bound_by": "bytes",
         **kstats["scatter"],
+    }, {
+        "name": "scatter_add_rows",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/scatter_add.cu",
+        "replaces": "gradient_sdf_tpu/ops/pallas/scatter_add.py:177",
+        "launches": sum(c.get("scatter_add_rows", 0) for c, _ in paths.values()),
+        "launches_counted_in": "the F = 1 launches of every main path above "
+                               "(no app calls scatter_add_rows; phases 2 and 2b "
+                               "launch it and hold it against its plain version)",
+        "bound_by": "bytes",
+        **kstats["rows"],
     }, {
         "name": "merge_clear",
         "route": "cuda",

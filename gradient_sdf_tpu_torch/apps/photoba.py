@@ -30,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -220,7 +221,12 @@ def _run(args, mesh) -> dict:
     def host_pose():
         return R_cur.cpu().numpy(), t_cur.cpu().numpy()
 
-    for frame in loader.frames(args.first, last):
+    load_ms = []
+    t_loop = t_end = None   # asking for frame 1; the end of the last frame
+    for frame, t_ask, t_got in loaders.timed(loader.frames(args.first, last)):
+        load_ms.append(T.record("Load data", t_got - t_ask) * 1e3)
+        if len(load_ms) == 2:
+            t_loop = t_ask
         i = frame.index
         print(f"Working on frame: {i}")
         depth = on_dev(frame.depth)
@@ -295,6 +301,7 @@ def _run(args, mesh) -> dict:
             else:
                 invalid_frames.append(i - args.first)
         pose_entries.append((frame.timestamp,) + host_pose())
+        t_end = time.perf_counter()
 
     tumio.write_trajectory(os.path.join(args.results, "_poses.txt"), pose_entries)
 
@@ -375,6 +382,11 @@ def _run(args, mesh) -> dict:
         "ba_energies": opt.energies,
         "timers": T.summary(),
         "device": str(dev),
+        # phase 1: per-frame wait for the loader, and frames after the first
+        # over the wall time from asking for frame 1 to the end of the last
+        "load_ms": load_ms,
+        "loop_fps": ((len(load_ms) - 1) / (t_end - t_loop)
+                     if t_loop is not None else None),
     }
     if mesh is not None:
         metrics["mesh"] = {"devices": mesh.size, "backend": mesh.backend,

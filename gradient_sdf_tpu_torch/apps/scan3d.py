@@ -288,7 +288,11 @@ def _loop(args, mesh, check_replicated) -> dict:
         print(f"Mesh: {mesh.describe()}")
     ckpt_path = os.path.join(args.results, "checkpoint.npz")
 
-    for frame in loader.frames(first, last):
+    t_loop = t_end = None   # asking for frame 1; the end of the last frame
+    for frame, t_ask, t_got in loaders.timed(loader.frames(first, last)):
+        load_ms = T.record("Load data", t_got - t_ask) * 1e3
+        if n_frames == 1:
+            t_loop = t_ask
         i = frame.index
         if not tracker_set:
             # dense tracking by default (sampling=1, the reference optimize()
@@ -317,7 +321,8 @@ def _loop(args, mesh, check_replicated) -> dict:
         if mesh is not None:
             coll_frame = (mesh_mod.calls, mesh_mod.nbytes)
         depth = on_dev(frame.depth)
-        entry = {"frame": i, "track_ms": None, "fuse_ms": None, "gn_iters": None}
+        entry = {"frame": i, "load_ms": load_ms, "track_ms": None,
+                 "fuse_ms": None, "gn_iters": None}
         fresh = i == first and not resumed   # the frame that starts the map
         if gt_mode or fresh:
             if gt_mode:
@@ -381,6 +386,7 @@ def _loop(args, mesh, check_replicated) -> dict:
             ckpt.save_state(ckpt_path, sdf_map.grid, vis=sdf_map.vis,
                             counter=sdf_map.counter, poses=pose_entries,
                             grid_cfg=sdf_map.cfg.grid, mesh=mesh)
+        t_end = time.perf_counter()
 
     if writes:
         tumio.write_trajectory(pose_path, pose_entries)
@@ -408,6 +414,11 @@ def _loop(args, mesh, check_replicated) -> dict:
         "timers": T.summary(),
         "device": str(dev),
         "frame_log": frame_log,
+        # frames after the first over the wall time from asking for frame 1
+        # to the end of the last frame: load, track and fuse, as users pay
+        "loop_fps": ((n_frames - 1) / (t_end - t_loop)
+                     if t_loop is not None else None),
+        "reader": _reader_stats(loader),
     }
     if mesh is not None:
         # kernel launches of this run, summed over the ranks
@@ -442,6 +453,13 @@ def _loop(args, mesh, check_replicated) -> dict:
         with open(args.metrics_json, "w") as f:
             json.dump(metrics, f, indent=2)
     return metrics
+
+
+def _reader_stats(loader) -> dict | None:
+    """The decode-ahead reader's settings and peak of resident images."""
+    r = loader.reader
+    return None if r is None else {"n_threads": r.n_threads, "window": r.window,
+                                   "peak_resident": r.peak_resident}
 
 
 def main(argv=None, *, check_replicated: bool = False):

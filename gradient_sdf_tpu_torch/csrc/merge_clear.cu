@@ -91,3 +91,19 @@ extern "C" int gsdf_merge_clear_f32(void* acc, void* weight, void* dist,
       with_grad != 0);
   return static_cast<int>(cudaGetLastError());
 }
+
+namespace {
+
+__global__ void empty_kernel() {}
+
+}  // namespace
+
+// The launch floor that `merge_clear` and every other kernel pays: a kernel
+// that does nothing, launched on `stream` with `blocks` x `threads`. Used by
+// the measurements only (chip_smoke.py phase 2b), never by the package.
+extern "C" int gsdf_empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<dim3(static_cast<unsigned>(blocks)),
+                 dim3(static_cast<unsigned>(threads)), 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}

@@ -3,9 +3,23 @@
 Port of `gradient_sdf_tpu/data/loaders.py` (the reference's
 `cpp/include/img_loader/ImageLoader.h:51-263` hierarchy): same directory
 conventions, depth units and trajectory format, as iterators yielding
-numpy frames. Images are decoded synchronously by the package's own codecs,
-chosen by extension: PNG by `data/png.py`, JPEG (Redwood's colour) by
-`data/jpeg.py`; there is no prefetcher and no Pillow.
+numpy frames. Images are decoded by the package's own codecs, chosen by
+extension: PNG by `data/png.py`, JPEG (Redwood's colour) by `data/jpeg.py`;
+no Pillow.
+
+`frames()` decodes ahead, as the JAX package's does: `_PrefetchReader`
+runs two worker threads over the ordered list of the range's colour and
+depth files, at most 16 images ahead of the loop, and hands the loop ready
+float32 arrays in order. The threads are Python threads. They decode in
+parallel with the frame loop because the calls that take the time release
+the GIL: the file read, `zlib.decompress` (PNG), the ctypes calls of
+`native/png_unfilter.c` and `native/jpeg_decode.c`, and numpy's passes to
+float32. What holds the GIL is the bytecode around them, and each return
+from such a call retakes it: a handoff that can stall the frame loop. So
+`read_png` inflates in one call (an output buffer of the expected size)
+and the conversions below are one numpy pass each. A worker's error is
+raised at its frame, on the loop's thread; nothing is decoded again
+synchronously.
 
 Conventions preserved:
   * 16-bit depth PNGs scaled by the dataset's unit to float32 metres
@@ -16,8 +30,12 @@ Conventions preserved:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
+import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -37,7 +55,8 @@ def _imread(path: str) -> np.ndarray:
 
 
 def _depth_from_raw(raw: np.ndarray, unit: float) -> np.ndarray:
-    return raw.astype(np.float32) * unit
+    # raw.astype(float32) * unit in one pass (the same float32 products)
+    return np.multiply(raw, unit, dtype=np.float32)
 
 
 def _color_from_raw(raw: np.ndarray) -> np.ndarray:
@@ -49,7 +68,8 @@ def _color_from_raw(raw: np.ndarray) -> np.ndarray:
         raw = raw[..., None]
     if raw.shape[-1] in (1, 2):
         raw = np.repeat(raw[..., :1], 3, axis=-1)
-    return raw[..., :3].astype(np.float32) / 255.0
+    # raw.astype(float32) / 255 in one pass (the same float32 quotients)
+    return np.divide(raw[..., :3], 255.0, dtype=np.float32)
 
 
 def load_depth_png(path: str, unit: float) -> np.ndarray:
@@ -61,6 +81,102 @@ def load_color_png(path: str) -> np.ndarray:
     """Colour image (PNG or JPEG) -> float32 RGB in [0,1]; greyscale is
     replicated to 3 channels (`ImageLoader.h:196-217`)."""
     return _color_from_raw(_imread(path))
+
+
+class _PrefetchReader:
+    """Ordered decode-ahead over a list of image files (the JAX package's
+    `_PrefetchReader` over its native prefetcher, `native/gradsdf_native.cpp`
+    `Prefetcher`, for PNG and JPEG alike).
+
+    `get(k)` returns image k decoded, and passed through `convert[k]` when
+    given, in the order of `paths`. `n_threads` worker threads decode
+    ahead; a worker starts image i only while i < (images taken) + `window`,
+    so at most `window` images are resident or in progress (`peak_resident`
+    records the most), whatever the sequence's length; 0 means no bound. A
+    `get` past the window slides it forward (random access trades the bound
+    for progress). A decode error is raised by `get` of that image, with
+    its path. `n_threads=0` decodes on the calling thread, in `get`.
+    `close()` stops and joins the workers."""
+
+    def __init__(self, paths, n_threads: int = 2, window: int = 16,
+                 convert=None):
+        self._paths = list(paths)
+        self._convert = (list(convert) if convert is not None
+                         else [None] * len(self._paths))
+        self._window = window if window > 0 else max(1, len(self._paths))
+        self._cv = threading.Condition()
+        self._next = 0          # the next image a worker takes up
+        self._consumed = 0      # images below this are no longer ahead
+        self._done = {}         # image -> (array, None) or (None, error)
+        self._busy = set()      # images being decoded
+        self._closed = False
+        self.n_threads = n_threads
+        self.window = window
+        self.peak_resident = 0
+        self._threads = [threading.Thread(target=self._work, daemon=True,
+                                          name=f"gsdf-decode-{t}")
+                         for t in range(n_threads)]
+        for t in self._threads:
+            t.start()
+
+    def _decode(self, k: int) -> np.ndarray:
+        arr = _imread(self._paths[k])
+        return arr if self._convert[k] is None else self._convert[k](arr)
+
+    def _work(self):
+        n = len(self._paths)
+        while True:
+            with self._cv:
+                self._cv.wait_for(lambda: self._closed or self._next >= n
+                                  or self._next < self._consumed + self._window)
+                if self._closed or self._next >= n:
+                    return
+                k = self._next
+                self._next += 1
+                self._busy.add(k)
+                self.peak_resident = max(self.peak_resident,
+                                         len(self._done) + len(self._busy))
+            try:
+                res = (self._decode(k), None)
+            except Exception as e:   # raised by get(k), on the loop's thread
+                res = (None, e)
+            with self._cv:
+                self._busy.discard(k)
+                self._done[k] = res
+                self._cv.notify_all()
+
+    def get(self, k: int) -> np.ndarray:
+        if not 0 <= k < len(self._paths):
+            raise IndexError(f"image {k} of {len(self._paths)}")
+        if not self._threads:
+            try:
+                return self._decode(k)
+            except Exception as e:
+                raise RuntimeError(f"cannot decode {self._paths[k]}: {e}") from e
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("the reader is closed")
+            if k + 1 > self._consumed + self._window:
+                self._consumed = k + 1 - self._window
+                self._cv.notify_all()
+            if k < self._next and k not in self._done and k not in self._busy:
+                raise IndexError(f"image {k} was taken already")
+            self._cv.wait_for(lambda: k in self._done)
+            arr, err = self._done.pop(k)
+            if k + 1 > self._consumed:
+                self._consumed = k + 1
+                self._cv.notify_all()
+        if err is not None:
+            raise RuntimeError(f"cannot decode {self._paths[k]}: {err}") from err
+        return arr
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._done.clear()
+            self._cv.notify_all()
+        for t in self._threads:
+            t.join()
 
 
 @dataclasses.dataclass
@@ -78,6 +194,7 @@ class ImageLoader:
 
     def __init__(self, path: str):
         self.path = path.rstrip("/") + "/"
+        self.reader: Optional[_PrefetchReader] = None   # frames()' last
 
     def load_intrinsics(self, filename: str = "intrinsics.txt") -> Optional[np.ndarray]:
         """3x3 row-major K from a whitespace text file (`ImageLoader.h:138-157`)."""
@@ -99,11 +216,26 @@ class ImageLoader:
         the requested range — the loader-specific directory convention."""
         raise NotImplementedError
 
-    def frames(self, first: int = 0, last: Optional[int] = None) -> Iterator[Frame]:
-        for i, ts, cp, dp in self._frame_specs(first, last):
-            yield Frame(color=load_color_png(cp),
-                        depth=load_depth_png(dp, self.unit),
-                        timestamp=ts, index=i)
+    def frames(self, first: int = 0, last: Optional[int] = None, *,
+               n_threads: int = 2, window: int = 16) -> Iterator[Frame]:
+        """Iterate the range's frames, decoded ahead by `n_threads` worker
+        threads at most `window` images (colour and depth count one each)
+        ahead of the caller; `n_threads=0` decodes synchronously. The reader
+        is closed, its threads joined, when the iteration ends, breaks or
+        raises; `self.reader` keeps it for its counters."""
+        specs = self._frame_specs(first, last)
+        paths, convert = [], []
+        depth = functools.partial(_depth_from_raw, unit=self.unit)
+        for _, _, cp, dp in specs:
+            paths += [cp, dp]
+            convert += [_color_from_raw, depth]
+        self.reader = reader = _PrefetchReader(paths, n_threads, window, convert)
+        try:
+            for k, (i, ts, _, _) in enumerate(specs):
+                yield Frame(color=reader.get(2 * k), depth=reader.get(2 * k + 1),
+                            timestamp=ts, index=i)
+        finally:
+            reader.close()
 
     def load_keyframe(self, index: int) -> Optional[Frame]:
         return None
@@ -113,6 +245,19 @@ class ImageLoader:
         keeps frame INDICES for its keyframe candidates and decodes only
         the <= --key-frame sampled images right before BA."""
         return None
+
+
+def timed(frames: Iterator[Frame]):
+    """Yield (frame, t_ask, t_got) for each frame of `frames`: the host
+    clock (`time.perf_counter`) when the loop asked for the frame and when
+    it held it. Closes `frames` when the loop ends, breaks or raises."""
+    with contextlib.closing(frames):
+        while True:
+            t_ask = time.perf_counter()
+            frame = next(frames, None)
+            if frame is None:
+                return
+            yield frame, t_ask, time.perf_counter()
 
 
 class TumrgbdLoader(ImageLoader):

@@ -179,10 +179,11 @@ def read_png(path: str) -> np.ndarray:
     pos = len(_SIGNATURE)
     idat = []
     hdr = plte = None
+    view = memoryview(blob)   # chunks without copies
     while pos < len(blob):
-        (n,) = struct.unpack(">I", blob[pos:pos + 4])
+        (n,) = struct.unpack(">I", view[pos:pos + 4])
         tag = blob[pos + 4:pos + 8]
-        data = blob[pos + 8:pos + 8 + n]
+        data = view[pos + 8:pos + 8 + n]
         pos += 12 + n
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", data)
@@ -205,7 +206,15 @@ def read_png(path: str) -> np.ndarray:
     ch = _TYPES[ctype][0]
     bits = ch * depth          # per pixel
     bpp = max(1, bits // 8)    # the filters' byte distance
-    data = zlib.decompress(b"".join(idat))
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    size = sum(-(-(h - y0) // dy) * (1 + -(-(-(-(w - x0) // dx) * bits) // 8))
+               for x0, y0, dx, dy in passes if w > x0 and h > y0)
+    # one output buffer of the expected size: zlib inflates in one call, so
+    # a decoding thread gives up and retakes the GIL once, not once a block.
+    # A header is outside input: the buffer is capped at what the stream can
+    # inflate to (deflate expands at most ~1032x).
+    stream = idat[0] if len(idat) == 1 else b"".join(idat)
+    data = zlib.decompress(stream, bufsize=max(1, min(size, 1032 * len(stream))))
     if not interlace:
         img = _samples(unfilter(data, h, -(-w * bits // 8), bpp), w, depth, ch)
     else:

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import device as device_mod
 from ..utils import se3
 
 KINECT_K = np.array(
@@ -31,10 +32,12 @@ class SphereWorld(NamedTuple):
     radii: torch.Tensor    # [S]
 
 
-def random_spheres(seed: int = 0, n: int = 5, device="cpu") -> SphereWorld:
+def random_spheres(seed: int = 0, n: int = 5, device=None) -> SphereWorld:
     """Five random non-intersecting spheres (`RenderSpheres.m:46-53`):
     centers uniform in [-0.5, 0.5]^3, radii in [0.0625, 0.5],
-    rejection-sampled for pairwise separation."""
+    rejection-sampled for pairwise separation; on `device` (default: the
+    CUDA card, raising where there is none)."""
+    device = device_mod.require() if device is None else device
     rng = np.random.RandomState(seed)
     centers, radii = [], []
     while len(centers) < n:
@@ -109,9 +112,11 @@ class BoxWorld(NamedTuple):
     half_extents: torch.Tensor  # [B, 3]
 
 
-def default_boxes(seed: int = 0, n: int = 3, device="cpu") -> BoxWorld:
+def default_boxes(seed: int = 0, n: int = 3, device=None) -> BoxWorld:
     """Floor slab (top face at z = -0.4) plus n boxes resting on it,
-    rejection-sampled for xy separation >= 5 cm; the JAX package's draw."""
+    rejection-sampled for xy separation >= 5 cm; the JAX package's draw, on
+    `device` (default: the CUDA card, raising where there is none)."""
+    device = device_mod.require() if device is None else device
     rng = np.random.RandomState(seed)
     centers = [np.array([0.0, 0.0, -0.45])]
     halfs = [np.array([0.8, 0.8, 0.05])]

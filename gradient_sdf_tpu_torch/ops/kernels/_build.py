@@ -82,6 +82,9 @@ def _declare(lib):
     lib.gsdf_merge_clear_f32.argtypes = (
         [vp] * 7 + [i64, i64, ctypes.c_int, vp])
     lib.gsdf_merge_clear_f32.restype = ctypes.c_int
+    # blocks, threads, stream: the empty kernel that measures the launch floor
+    lib.gsdf_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, vp]
+    lib.gsdf_empty_launch.restype = ctypes.c_int
     # origins, dirs, s0, s_end, directory, coarse_occ, dist, weight, found,
     # s_mid, s_star, stats and touched (or both null); n, num_blocks; width,
     # dir_dim, block_shape, coarse_factor; ten float32 constants; max_steps,

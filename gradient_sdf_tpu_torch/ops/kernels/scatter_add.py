@@ -32,13 +32,15 @@ MAX_FIELDS = 5  # fusion's (w, wd, wn_x, wn_y, wn_z)
 ACC_ROW = 8     # floats per row of fusion's accumulator: one 32-byte sector
 
 # kernel launches since the last reset_launch_count(); the CPU path and the
-# reference do not count
+# reference do not count. `rows_launch_count` counts the F = 1 launches
+# among them (`scatter_add_rows`' case).
 launch_count = 0
+rows_launch_count = 0
 
 
 def reset_launch_count():
-    global launch_count
-    launch_count = 0
+    global launch_count, rows_launch_count
+    launch_count = rows_launch_count = 0
 
 
 def new_accumulator(out_size: int, device) -> torch.Tensor:
@@ -121,7 +123,7 @@ def _launch(idx, ptrs, sample_stride, out, out_size):
     n, nf = idx.shape[0], len(ptrs)
     if n == 0 or out_size == 0:
         return out
-    global launch_count
+    global launch_count, rows_launch_count
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         rc = lib.gsdf_scatter_add_f32(
@@ -131,6 +133,8 @@ def _launch(idx, ptrs, sample_stride, out, out_size):
     if rc != 0:
         raise RuntimeError(f"scatter_add kernel launch failed: CUDA error {rc}")
     launch_count += 1
+    if nf == 1:
+        rows_launch_count += 1
     return out
 
 

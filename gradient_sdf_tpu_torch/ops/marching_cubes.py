@@ -8,8 +8,10 @@ once against the 256-case tables, and interpolates edge vertices, in chunks
 of blocks. A cube emits geometry only if all 8 corners have weight > 0
 (`computeLutIndex`, :611-636); zero-crossing interpolation is clamped
 (:642-662). The tables are generated by the same numpy code as the JAX
-module (`build_tables`, copied). Vertices are deduplicated on the host with
-`np.unique` (the JAX module's fallback when its native library is absent).
+module (`build_tables`, copied). Vertices are deduplicated on the host by
+`native/dedup.c` (built at first use with the host C compiler, as the JAX
+module's native library is), which numbers them in order of first
+occurrence: the JAX module's vertex ids, faces and colours.
 
 Corner convention: corner i sits at offset ((i)&1, (i>>1)&1, (i>>2)&1);
 "inside" = dist < iso. Triangles are wound counter-clockwise seen from the
@@ -18,12 +20,14 @@ outside (positive side).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ..config import GridConfig
+from ..native import _build
 from . import voxel_grid as vg
 
 MAX_TRIS = 6  # per cube; generator asserts the true max fits
@@ -343,14 +347,19 @@ def extract_mesh(grid: vg.VoxelGrid, gcfg: GridConfig, iso: float = 0.0,
     faces = np.arange(len(flat), dtype=np.int32).reshape(-1, 3)
     if not (dedup and len(flat)):
         return result(flat, faces, colors)
-    quantum = gcfg.voxel_size * 1e-4
-    keys = np.round(flat / quantum).astype(np.int64)
-    _, idx, inv = np.unique(keys, axis=0, return_index=True,
-                            return_inverse=True)
-    verts = flat[idx]
-    if with_color:
-        colors = colors[idx]
-    faces = inv.reshape(-1)[faces].astype(np.int32)
+    return result(*weld(flat, colors, gcfg.voxel_size * 1e-4))
+
+
+def weld(soup: np.ndarray, colors, quantum: float, dedup=None):
+    """Triangle soup [3T, 3] (+ per-vertex colours or None) -> (vertices,
+    faces, colours): vertices merged by `dedup` (default `dedup_vertices`;
+    `dedup_vertices_reference` gives the same arrays) at `quantum`, each
+    keeping the colour of its first occurrence, and the triangles that
+    collapsed dropped."""
+    verts, inv, first = (dedup or dedup_vertices)(soup, quantum)
+    if colors is not None:
+        colors = colors[first]
+    faces = inv.reshape(-1, 3)
     # drop degenerate triangles (iso-surface passing exactly through a
     # lattice corner collapses some triangles to edges/points)
     keep = (
@@ -358,4 +367,57 @@ def extract_mesh(grid: vg.VoxelGrid, gcfg: GridConfig, iso: float = 0.0,
         & (faces[:, 1] != faces[:, 2])
         & (faces[:, 0] != faces[:, 2])
     )
-    return result(verts, faces[keep], colors)
+    return verts, faces[keep], colors
+
+
+# ---------------------------------------------------------------------------
+# vertex dedup
+# ---------------------------------------------------------------------------
+
+
+def _dedup_native():
+    fn = _build.load("dedup").gsdf_dedup_vertices
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int64
+    return fn
+
+
+def dedup_vertices(verts: np.ndarray, quantum: float):
+    """Merge vertices whose coordinates round to the same multiple of
+    `quantum` (half away from zero, in float64). Returns (unique f32 [M, 3],
+    index_map int32 [N], first int64 [M]): ids in order of first occurrence,
+    `unique[id] = verts[first[id]]`, the first vertex with that key. In
+    native code (`native/dedup.c`); `dedup_vertices_reference` is the same
+    function in Python."""
+    verts = np.ascontiguousarray(verts, np.float32).reshape(-1, 3)
+    n = len(verts)
+    if n >= 2**31:
+        raise ValueError(f"{n} vertices: ids are int32")
+    index_map = np.empty(n, np.int32)
+    first = np.empty(n, np.int64)
+    m = _dedup_native()(verts.ctypes.data, n, float(quantum),
+                        index_map.ctypes.data, first.ctypes.data)
+    if m < 0:
+        raise MemoryError(f"dedup of {n} vertices: out of memory")
+    first = first[:m].copy()
+    return verts[first], index_map, first
+
+
+def dedup_vertices_reference(verts: np.ndarray, quantum: float):
+    """Plain version of `dedup_vertices`: a loop over a dict."""
+    verts = np.ascontiguousarray(verts, np.float32).reshape(-1, 3)
+    x = verts.astype(np.float64) * (1.0 / float(quantum))
+    t = np.trunc(x)
+    keys = (t + (x - t >= 0.5) - (x - t <= -0.5)).astype(np.int64)
+    ids: dict = {}
+    index_map = np.empty(len(verts), np.int32)
+    first = []
+    for i, k in enumerate(map(tuple, keys.tolist())):
+        if k not in ids:
+            ids[k] = len(first)
+            first.append(i)
+        index_map[i] = ids[k]
+    first = np.asarray(first, np.int64)
+    return verts[first], index_map, first

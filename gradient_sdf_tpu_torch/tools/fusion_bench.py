@@ -88,7 +88,7 @@ def golden_protocol():
     cfg = dataclasses.replace(
         cfg, grid=dataclasses.replace(cfg.grid, voxel_size=0.02),
         fusion=dataclasses.replace(cfg.fusion, trunc_voxels=5.0))
-    world = synth.random_spheres(seed=2)
+    world = synth.random_spheres(seed=2, device="cpu")
     poses = synth.orbit_poses(n=6, radius=2.0, arc=np.deg2rad(4.0))
     depths = [synth.quantize_depth(synth.render_depth(world, R, t)).numpy()
               for R, t in poses]

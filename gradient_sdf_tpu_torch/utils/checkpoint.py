@@ -6,9 +6,10 @@ goes into one compressed npz of plain numpy arrays, for `--resume` in Scan3D
 and crash recovery in long runs. Keys, dtypes and the atomic write are the
 JAX package's (format v2), so a file written by either package loads in the
 other; the visibility words are uint32 in the file and int32 with the same
-bit patterns in memory (`utils/interop`). `load_state` takes the device the
-tensors go to. Scratch that is sized to the grid (the map's accumulator) is
-not saved: `GradSdfMap.restore` rebuilds it.
+bit patterns in memory (`utils/interop`). `load_state` puts the tensors on
+the card unless the caller names another device. Scratch that is sized to
+the grid (the map's accumulator) is not saved: `GradSdfMap.restore`
+rebuilds it.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 
 from ..config import GridConfig
 from ..ops import voxel_grid as vg
+from . import device as device_mod
 from . import interop
 
 FORMAT_VERSION = 2  # v2 adds the GridConfig geometry (dir_dim may have grown)
@@ -67,9 +69,11 @@ def _host(a):
     return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
 
 
-def load_state(path: str, device="cpu"):
-    """Returns dict with grid and vis (or None) on `device`, counter, poses
-    (list of (stamp, R, t) with numpy R, t) and grid_cfg."""
+def load_state(path: str, device=None):
+    """Returns dict with grid and vis (or None) on `device` (default: the
+    CUDA card, raising where there is none), counter, poses (list of
+    (stamp, R, t) with numpy R, t) and grid_cfg."""
+    device = device_mod.require() if device is None else device
     z = np.load(path, allow_pickle=False)
     grid = interop.grid_from_numpy(z, device)
     vis = interop.vis_from_numpy(z["vis"], device) if "vis" in z else None

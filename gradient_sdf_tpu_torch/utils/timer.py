@@ -23,7 +23,10 @@ class Timer:
 
     def toc(self, label: str | None = None) -> float:
         dt = time.perf_counter() - self._t0
-        label = label if label is not None else self._label
+        return self.record(label if label is not None else self._label, dt)
+
+    def record(self, label: str, dt: float) -> float:
+        """Record `dt` seconds, timed elsewhere, under `label`."""
         self.records[label].append(dt)
         if self.verbose:
             if dt < 1.0:

@@ -58,7 +58,7 @@ def _surface_points(world, R, t, d):
 def test_box_render_matches_analytic_sdf():
     """Backprojected depth pixels lie on the analytic zero set, the
     gradients are unit, and stepping inward goes inside."""
-    world = synth.default_boxes(seed=2)
+    world = synth.default_boxes(seed=2, device="cpu")
     R, t = _poses()[0]
     d = synth.render_depth_boxes(world, R, t, K, W, H).numpy()
     assert 0.15 < (d > 0).mean() < 0.9
@@ -72,7 +72,7 @@ def test_box_render_matches_analytic_sdf():
 
 
 def test_box_render_has_occlusion_edges():
-    world = synth.default_boxes(seed=2)
+    world = synth.default_boxes(seed=2, device="cpu")
     R, t = _poses()[0]
     d = synth.render_depth_boxes(world, R, t, K, W, H).numpy()
     both = (d[:, 1:] > 0) & (d[:, :-1] > 0)
@@ -81,7 +81,7 @@ def test_box_render_has_occlusion_edges():
 
 
 def test_box_world_separation():
-    world = synth.default_boxes(seed=0, n=3)
+    world = synth.default_boxes(seed=0, n=3, device="cpu")
     c, h = world.centers.numpy(), world.half_extents.numpy()
     floor_top = c[0, 2] + h[0, 2]
     np.testing.assert_allclose(c[1:, 2] - h[1:, 2], floor_top, atol=1e-6)
@@ -127,14 +127,14 @@ def test_cosine_correction_halves_grazing_bias():
 
     cfg = preset("synth")
     gcfg = dataclasses.replace(cfg.grid, voxel_size=0.02)
-    world = synth.default_boxes(seed=2)
+    world = synth.default_boxes(seed=2, device="cpu")
     K2 = synth.KINECT_K.copy()
     K2[:2] *= 0.5
     W2, H2 = 320, 240
     R0, t0 = synth.orbit_poses(n=2, radius=1.8, height_range=(0.35, 0.6),
                                target=np.array([0.0, 0.0, -0.25]),
                                arc=np.deg2rad(4.0))[0]
-    cache = normals.build_cache(W2, H2, K2, window=5)
+    cache = normals.build_cache(W2, H2, K2, window=5, device="cpu")
     d0 = synth.render_depth_boxes(world, R0, t0, K2, W2, H2)
     d = d0.numpy()
     m = d > 0
@@ -183,7 +183,7 @@ def test_gradient_analysis_fd_sign_convention(tmp_path):
 
 @pytest.mark.parametrize("seed", [0, 2, 7])
 def test_default_boxes_equal_jax(seed):
-    tw, jw = synth.default_boxes(seed=seed), jsynth.default_boxes(seed=seed)
+    tw, jw = synth.default_boxes(seed=seed, device="cpu"), jsynth.default_boxes(seed=seed)
     np.testing.assert_array_equal(tw.centers.numpy(), np.asarray(jw.centers))
     np.testing.assert_array_equal(tw.half_extents.numpy(),
                                   np.asarray(jw.half_extents))
@@ -192,7 +192,7 @@ def test_default_boxes_equal_jax(seed):
 def test_box_sdf_matches_jax():
     """At points around the boxes, inside and outside, away from creases
     (where two boxes' or two axes' terms are within 1e-4 of each other)."""
-    world = synth.default_boxes(seed=2)
+    world = synth.default_boxes(seed=2, device="cpu")
     jw = jsynth.default_boxes(seed=2)
     rng = np.random.default_rng(0)
     pts = rng.uniform([-0.9, -0.9, -0.6], [0.9, 0.9, 0.1], (20000, 3))
@@ -214,7 +214,7 @@ def test_box_sdf_matches_jax():
 
 @pytest.mark.parametrize("pose", [0, 3])
 def test_render_depth_and_color_boxes_match_jax(pose):
-    world = synth.default_boxes(seed=2)
+    world = synth.default_boxes(seed=2, device="cpu")
     jw = jsynth.default_boxes(seed=2)
     R, t = _poses()[pose]
     td = synth.render_depth_boxes(world, R, t, K, W, H).numpy()

@@ -70,7 +70,7 @@ def test_state_roundtrip(tmp_path):
     tckpt.save_state(path, grid, vis=vis, counter=2, poses=POSES, grid_cfg=gcfg,
                      extra={"note": np.arange(3)})
     assert not os.path.exists(path + ".tmp.npz")     # written, then renamed
-    state = tckpt.load_state(path)
+    state = tckpt.load_state(path, device="cpu")
     assert int(state["grid"].num_active) == 2
     for k, v in grid._asdict().items():
         got = getattr(state["grid"], k)
@@ -83,7 +83,7 @@ def test_state_roundtrip(tmp_path):
     # poses given as tensors are saved alike
     tckpt.save_state(path, grid, poses=[(s, torch.from_numpy(R), torch.from_numpy(t))
                                         for s, R, t in POSES])
-    again = tckpt.load_state(path)
+    again = tckpt.load_state(path, device="cpu")
     np.testing.assert_array_equal(again["poses"][1][2], np.ones(3))
     assert again["vis"] is None and again["counter"] == 0
 
@@ -126,7 +126,7 @@ def test_file_written_by_the_jax_package_loads_in_the_port(tmp_path):
     path = str(tmp_path / "jax.npz")
     jckpt.save_state(path, jgrid, vis=jnp.asarray(words), counter=7, poses=POSES,
                      grid_cfg=gcfg)
-    state = tckpt.load_state(path)
+    state = tckpt.load_state(path, device="cpu")
     got = interop.grid_to_numpy(state["grid"])
     for k, v in jgrid._asdict().items():
         assert got[k].dtype == np.asarray(v).dtype, k
@@ -153,7 +153,7 @@ def test_grown_grid_config_roundtrip(tmp_path):
     grid, gcfg = tvg.grow_directory(grid, gcfg)  # dir_dim 16 -> 32
     path = str(tmp_path / "state.npz")
     tckpt.save_state(path, grid, counter=1, grid_cfg=gcfg)
-    state = tckpt.load_state(path)
+    state = tckpt.load_state(path, device="cpu")
     gc = state["grid_cfg"]
     assert (gc.dir_dim, gc.num_blocks) == (32, 128)
     assert abs(gc.voxel_size - 0.02) < 1e-9
@@ -161,7 +161,7 @@ def test_grown_grid_config_roundtrip(tmp_path):
         state["grid"], tvg.block_local_to_voxel(coords, gc), gc)
     assert bool(present.all())
     tckpt.save_state(path, grid, counter=1)
-    for loader in (tckpt.load_state, jckpt.load_state):
+    for loader in (lambda p: tckpt.load_state(p, device="cpu"), jckpt.load_state):
         gc2 = loader(path)["grid_cfg"]
         assert (gc2.dir_dim, gc2.num_blocks, gc2.block_shape) == (32, 128, 8)
         assert math.isnan(gc2.voxel_size)
@@ -191,7 +191,7 @@ def test_map_restore_rebuilds_what_is_sized_to_the_grid(tmp_path):
     tckpt.save_state(path, a.grid, vis=a.vis, counter=a.counter, grid_cfg=a.cfg.grid)
 
     b = GradSdfMap(small, with_vis=True, device="cpu")
-    state = tckpt.load_state(path)
+    state = tckpt.load_state(path, device="cpu")
     b.restore(state["grid"], state["grid_cfg"], vis=state["vis"],
               counter=state["counter"])
     assert b.cfg.grid == a.cfg.grid and b.counter == 3
@@ -290,7 +290,7 @@ def test_scan3d_checkpoint_cadence(data, tmp_path, monkeypatch):
     m = tscan.main(["--input", data, "--pose-file", "gt_poses.txt",
                     "--results", str(tmp_path), "--checkpoint-every", "2"] + APP)
     assert m["frames"] == 5 and saved == [2, 4]
-    state = tckpt.load_state(os.path.join(tmp_path, "checkpoint.npz"))
+    state = tckpt.load_state(os.path.join(tmp_path, "checkpoint.npz"), device="cpu")
     assert state["counter"] == 4 and len(state["poses"]) == 4
     assert state["grid_cfg"].voxel_size == 0.02
 

@@ -242,7 +242,7 @@ def _depth(seed=8):
 
 def test_normal_cache_matches_jax():
     jc = jnorm.build_cache(W, H, K, window=5)
-    tc = tnorm.build_cache(W, H, K, window=5)
+    tc = tnorm.build_cache(W, H, K, window=5, device="cpu")
     for name in ("x0", "y0", "n_sq_inv", "x0_n_sq_inv", "y0_n_sq_inv", "Q"):
         np.testing.assert_array_equal(_np(getattr(tc, name)),
                                       _np(getattr(jc, name)), err_msg=name)
@@ -259,7 +259,7 @@ def test_box_filter_matches_numpy_reflect101():
 def test_compute_normals_matches_jax(window):
     depth = _depth()
     jc = jnorm.build_cache(W, H, K, window=window)
-    tc = tnorm.build_cache(W, H, K, window=window)
+    tc = tnorm.build_cache(W, H, K, window=window, device="cpu")
     want = np.asarray(jnorm.compute_normals(jc, jnp.asarray(depth)))
     got = tnorm.compute_normals(tc, torch.from_numpy(depth)).numpy()
     fin = np.isfinite(want)

@@ -111,7 +111,7 @@ def test_global_mesh_puts_hosts_on_the_block_axis(ranks):
 
 
 def test_fusion_across_hosts_matches_jax(ranks, frames, monkeypatch):
-    tc = tnorm.build_cache(W, H, K, window=5)
+    tc = tnorm.build_cache(W, H, K, window=5, device="cpu")
 
     def port_normals(cache, depth):
         def host(d):

@@ -70,7 +70,7 @@ def frames():
 
 @pytest.fixture(scope="module")
 def caches():
-    return jnorm.build_cache(W, H, K, window=5), tnorm.build_cache(W, H, K, window=5)
+    return jnorm.build_cache(W, H, K, window=5), tnorm.build_cache(W, H, K, window=5, device="cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -80,7 +80,7 @@ def same_normals(monkeypatch):
 
     def port_normals(cache, depth):
         tc = tnorm.build_cache(depth.shape[1], depth.shape[0], K,
-                               window=cache.window)
+                               window=cache.window, device="cpu")
 
         def host(d):
             return tnorm.compute_normals(tc, torch.from_numpy(np.array(d))).numpy()

@@ -64,7 +64,7 @@ def _jax_noisy_frames():
 
 def test_noisy_long_sequence_ate(one_torch_thread):
     depths, poses = _jax_noisy_frames()
-    cache = normals.build_cache(W, H, K, window=5)
+    cache = normals.build_cache(W, H, K, window=5, device="cpu")
     grid = vg.create(GCFG, "cpu")
     acc = fusion.new_accumulator(grid)
     R_cur, t_cur = (torch.from_numpy(a) for a in poses[0])

@@ -60,7 +60,7 @@ def same_normals():
 
     def port_normals(cache, depth):
         tc = tnorm.build_cache(depth.shape[1], depth.shape[0], K,
-                               window=cache.window)
+                               window=cache.window, device="cpu")
 
         def host(d):
             return tnorm.compute_normals(tc, torch.from_numpy(np.array(d))).numpy()
@@ -177,7 +177,7 @@ def _assert_same_map(got, want):
 
 
 def _port_single(scene, n_frames):
-    tc = tnorm.build_cache(W, H, K, window=5)
+    tc = tnorm.build_cache(W, H, K, window=5, device="cpu")
     g = tvg.create(GCFG, "cpu")
     for d, R, t in scene["frames"][:n_frames]:
         g = tfu.fuse_frame(g, torch.from_numpy(d), tc, torch.from_numpy(R),
@@ -322,7 +322,7 @@ def test_sharded_track_and_fuse_matches_single_device(port, scene, case):
     Rp, tp, converged, got = port[f"track_and_fuse{iters}"]
     d = scene["frames"][1][0]
     _, R, t = scene["frames"][start]
-    tc = tnorm.build_cache(W, H, K, window=5)
+    tc = tnorm.build_cache(W, H, K, window=5, device="cpu")
     grid, res = ttracker.track_and_fuse_frame(
         interop.grid_from_numpy(_host(scene["grid3"])), torch.from_numpy(d), K,
         torch.from_numpy(R), torch.from_numpy(t), tc, GCFG, FCFG,

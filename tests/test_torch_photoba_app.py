@@ -121,9 +121,14 @@ def test_photoba_end_to_end_cpu(synth_dir, tmp_path):
     with open(mpath) as f:
         on_disk = json.load(f)
     assert set(on_disk) == {"keyframes", "invalid_frames", "suppressed_keyframes",
-                            "ba_converged", "ba_energies", "timers", "device"}
+                            "ba_converged", "ba_energies", "timers", "device",
+                            "load_ms", "loop_fps"}
     assert {"Integrate depth data into Sdf", "Point optimization",
-            "Photometric BA", "Color upsampling"} <= set(on_disk["timers"])
+            "Photometric BA", "Color upsampling", "Load data"} <= set(on_disk["timers"])
+    # phase 1's wait for each frame, and its loop rate with that wait
+    assert len(on_disk["load_ms"]) == 14
+    assert all(np.isfinite(x) and x >= 0 for x in on_disk["load_ms"])
+    assert np.isfinite(on_disk["loop_fps"]) and on_disk["loop_fps"] > 0
 
     for f in ARTIFACTS:
         assert os.path.isfile(os.path.join(results, f)), f

@@ -216,6 +216,23 @@ def test_bad_filter_type_and_bad_size_raise(tmp_path):
         png.read_png(path)
 
 
+def test_header_claiming_a_huge_image_raises_without_allocating_it(tmp_path):
+    """An IHDR claiming 60000 x 60000 RGBA at 16 bits (~29 GB of samples)
+    over a tiny stream: `read_png` sizes zlib's buffer by what the stream
+    can inflate to, and raises on the short data."""
+    path = str(tmp_path / "huge.png")
+    _encode(path, np.zeros((4, 4, 1), np.uint8), 0, 8, np.random.default_rng(0))
+    with open(path, "rb") as f:
+        blob = f.read()
+    ihdr = struct.pack(">IIBBBBB", 60000, 60000, 16, 6, 0, 0, 0)
+    chunk = (struct.pack(">I", 13) + b"IHDR" + ihdr
+             + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr) & 0xFFFFFFFF))
+    with open(path, "wb") as f:
+        f.write(blob[:8] + chunk + blob[33:])
+    with pytest.raises(ValueError, match="wrong size"):
+        png.read_png(path)
+
+
 @pytest.mark.parametrize("what", ["depth", "rgb"])
 def test_vga_pair_equals_the_jax_loader(tmp_path, what):
     """A 640x480 depth and RGB pair as PIL writes them: the port's loader

@@ -7,7 +7,8 @@ loader reads too), on the CPU.
 
 Tolerances, with their reasons:
   * marching cubes on a shared grid: vertices to 1e-6 m — the same float32
-    interpolation; only the dedup's vertex order differs.
+    interpolation; faces equal, both numbering vertices by first
+    occurrence.
   * app vs app: the packages' FALS normals differ by ~1e-3 (see
     test_torch_core.py), which flips the few pixels whose view angle sits
     on fusion's 60-degree gate, and moves tracked poses within the GN
@@ -25,6 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from gradient_sdf_tpu import native as jnative
 from gradient_sdf_tpu.apps import scan3d as jscan
 torch.backends.cuda.matmul.allow_tf32 = False  # float32, as the JAX package
 torch.backends.cudnn.allow_tf32 = False
@@ -79,10 +81,26 @@ def test_extract_mesh_on_interop_grid_matches_jax():
     jv, jf = jmc.extract_mesh(jg, gcfg, chunk=64)
     tv, tf = tmc.extract_mesh(tg, gcfg, chunk=64)
     assert len(tf) > 100
-    # vertex numbering differs (np.unique order vs the JAX package's native
-    # dedup), so compare vertices and triangle centroids as point sets
-    _assert_same_points(tv, jv, 1e-6)
-    _assert_same_points(tv[tf].mean(axis=1), jv[jf].mean(axis=1), 1e-6)
+    if jnative.available():
+        # both number vertices in order of first occurrence: the same
+        # arrays, in the same order
+        np.testing.assert_array_equal(tf, jf)
+        np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-6)
+        # colours follow the first occurrence in both packages
+        rng = np.random.default_rng(5)
+        cf = rng.random((gcfg.num_blocks, gcfg.block_shape ** 3, 3)).astype(np.float32)
+        jv_c, jf_c, jc = jmc.extract_mesh(jg, gcfg, chunk=64,
+                                          color_field=jnp.asarray(cf))
+        tv_c, tf_c, tc = tmc.extract_mesh(tg, gcfg, chunk=64,
+                                          color_field=torch.as_tensor(cf))
+        np.testing.assert_array_equal(tf_c, jf_c)
+        np.testing.assert_allclose(tv_c, jv_c, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(tc, jc, rtol=0, atol=1e-6)
+    else:
+        # the JAX package's np.unique fallback numbers vertices by sorted
+        # key: compare vertices and triangle centroids as point sets
+        _assert_same_points(tv, jv, 1e-6)
+        _assert_same_points(tv[tf].mean(axis=1), jv[jf].mean(axis=1), 1e-6)
     # without dedup: the same triangle soup
     tv_raw, tf_raw = tmc.extract_mesh(tg, gcfg, chunk=64, dedup=False)
     jv_raw, _ = jmc.extract_mesh(jg, gcfg, chunk=64, dedup=False)
@@ -209,7 +227,7 @@ def test_make_synth_layout_and_loader_match_jax(dataset):
     R, t = tsynth.orbit_poses(n=4, radius=2.0, arc=np.deg2rad(4.0))[0]
     jd = np.asarray(jsynth.render_depth(world, jnp.asarray(R), jnp.asarray(t),
                                         K, 320, 240))
-    td = tsynth.render_depth(tsynth.random_spheres(seed=2), R, t, K, 320, 240)
+    td = tsynth.render_depth(tsynth.random_spheres(seed=2, device="cpu"), R, t, K, 320, 240)
     np.testing.assert_allclose(td.numpy(), jd, atol=1e-6)
     mm = np.round(td.numpy() * 1000.0).astype(np.uint16)
     np.testing.assert_array_equal(frames_t[0].depth, mm.astype(np.float32) * 1e-3)
@@ -220,7 +238,7 @@ def test_sphere_sdf_noise_and_quantization_match_jax(monkeypatch):
 
     from gradient_sdf_tpu_torch.data import synth as tsynth
 
-    jw, tw = jsynth.random_spheres(seed=3), tsynth.random_spheres(seed=3)
+    jw, tw = jsynth.random_spheres(seed=3), tsynth.random_spheres(seed=3, device="cpu")
     pts = np.random.default_rng(14).uniform(-0.8, 0.8, (500, 3)).astype(np.float32)
     for got, want in zip(tsynth.sphere_sdf(tw, torch.from_numpy(pts)),
                          jsynth.sphere_sdf(jw, jnp.asarray(pts))):
@@ -322,6 +340,23 @@ def test_scan3d_apps_agree_on_map_and_mesh(apps):
     assert np.percentile(d_ab, 99) < 0.01  # 1 voxel = 2 cm
     cloud = load_ply(os.path.join(tres, "gradient_sdf_cloud_final.ply"))
     assert len(cloud["vertex"]) > 100
+
+
+def test_scan3d_load_ms_and_loop_fps(apps):
+    """The port app times the wait for each frame ("Load data", the JAX
+    app's label) and the loop rate with it; the loader decoded ahead."""
+    for mode in ("gt", "track"):
+        _, m = apps["torch", mode]
+        loads = [e["load_ms"] for e in m["frame_log"]]
+        assert len(loads) == m["frames"] == 4
+        assert all(np.isfinite(x) and x >= 0 for x in loads)
+        assert m["timers"]["Load data"]["count"] == 4
+        # frames 1-3 over the wall time from asking for frame 1: at most the
+        # rate of the frames' own work, which leaves the load out
+        work_s = sum(e["frame_ms"] for e in m["frame_log"][1:]) / 1e3
+        assert np.isfinite(m["loop_fps"]) and 0 < m["loop_fps"] <= 3 / work_s
+        assert m["reader"]["n_threads"] == 2 and m["reader"]["window"] == 16
+        assert 1 <= m["reader"]["peak_resident"] <= 16 + 2
 
 
 def test_scan3d_apps_agree_on_trajectory(apps, dataset):

@@ -233,7 +233,7 @@ def test_track_and_fuse_frame_matches_jax(setup, monkeypatch):
     from gradient_sdf_tpu.ops import fusion as jfu
 
     def port_normals(cache, depth):
-        tc = tnorm.build_cache(W, H, K, window=cache.window)
+        tc = tnorm.build_cache(W, H, K, window=cache.window, device="cpu")
         return jnp.asarray(tnorm.compute_normals(
             tc, torch.from_numpy(np.array(depth))).numpy())
 
@@ -242,7 +242,7 @@ def test_track_and_fuse_frame_matches_jax(setup, monkeypatch):
     tgrid = interop.grid_from_numpy({k: np.asarray(v) for k, v in
                                      jgrid._asdict().items()})
     jcache = jnorm.build_cache(W, H, K, window=5)
-    tcache = tnorm.build_cache(W, H, K, window=5)
+    tcache = tnorm.build_cache(W, H, K, window=5, device="cpu")
     tcfg = TrackerConfig(conv_threshold=5e-3)
     (R0, t0), (Rp, tp) = poses[7], poses[6]
     d = depths[8]

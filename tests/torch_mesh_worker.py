@@ -85,7 +85,7 @@ def _parallel_cases(inputs):
     gcfg, fcfg, TrackerConfig = _cfgs(inputs)
     K, W, H = inputs["K"], inputs["W"], inputs["H"]
     frames = inputs["frames"]
-    cache = normals.build_cache(W, H, K, window=5)
+    cache = normals.build_cache(W, H, K, window=5, device="cpu")
     meshes = {bp: mesh_mod.make_mesh(4, bp, "cpu") for bp in (1, 2, 4)}
     out = {}
 
@@ -256,7 +256,7 @@ def distributed_cases(inputs):
     K, W, H = inputs["K"], inputs["W"], inputs["H"]
     frames = inputs["frames"]
     mesh = distributed.global_mesh(device="cpu")
-    cache = normals.build_cache(W, H, K, window=5)
+    cache = normals.build_cache(W, H, K, window=5, device="cpu")
     grid, rows = _fuse_sharded(mesh, frames[:2], cache, gcfg, fcfg)
     full = sharding.gather_grid(mesh, grid)
     d1, R1, t1 = frames[1]
