@@ -15,8 +15,10 @@ and the high-resolution exports; phase 6), the same app on textured
 spheres from ground-truth poses with BA started from perturbed poses
 (phase 6b: BA has to win energy and pose error back), and one BA
 alternation at F = 30 keyframes x V = 102400 voxels x 640x480 images, card
-against CPU (phase 7). Phase 4b times grad-mode tracking with and without
-the packed rows; phases 8-9 hold the march kernel to its plain version and
+against CPU (phase 7). Phase 4b holds the two GN tracking kernels to their
+plain versions at every iteration of golden frames 1-5 and times tracking
+through them beside the plain loop with and without the packed rows
+(`tools/track_bench.py`); phases 8-9 hold the march kernel to its plain version and
 render; phase 10 runs the base-SDF ablation and checkpoint/resume. Phase 11
 checks the host PNG and JPEG decoders built here; phase 12 the box world at
 VGA (make_synth, Scan3D at 1 cm, the gradient analysis on the card, a
@@ -46,8 +48,10 @@ launch count on the main paths (each counted from zero, and named in
 time beside the plain version's, the bound and (for the scatter and its
 F = 1 launch, `scatter_add_rows`) the bare `index_add_` as the library
 yardstick, on golden frame 5's real samples and, for the march, on the
-render scene's rays; phase 2b also times an empty kernel, the launch floor
-beside `merge_clear`; and last
+render scene's rays, for the GN kernels on golden frame 5's points (with
+`torch.linalg.solve_ex` on the 6x6 as the step's yardstick); phase 2b also
+times an empty kernel, the launch floor beside `merge_clear`, and phase 4b
+beside the GN kernels; and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -161,7 +165,8 @@ def phase_build():
 
     lib = _build.load()
     for name in ("gsdf_scatter_add_f32", "gsdf_merge_clear_f32",
-                 "gsdf_raycast_march_f32"):
+                 "gsdf_raycast_march_f32", "gsdf_gn_residual_reduce_f32",
+                 "gsdf_gn_step_f32"):
         getattr(lib, name)   # AttributeError if the library lacks a kernel
     ptxas = [l.strip() for l in _build.build_log.splitlines() if "ptxas" in l
              or "spill" in l]
@@ -550,11 +555,13 @@ def run_app(data, results, extra, data_type="synth", voxel_size="0.02"):
 
 
 def kernel_modules():
+    from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
     from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
     from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
     from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
 
-    return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm}
+    return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm,
+            "gn_residual_reduce": gt}
 
 
 def reset_launch_counts():
@@ -565,10 +572,23 @@ def reset_launch_counts():
 def launch_counts():
     counts = {name: mod.launch_count for name, mod in kernel_modules().items()}
     counts["scatter_add_rows"] = kernel_modules()["scatter_add"].rows_launch_count
+    counts["gn_step"] = kernel_modules()["gn_residual_reduce"].step_launch_count
     return counts
 
 
 FUSION_KERNELS = ("scatter_add", "merge_clear")
+TRACK_KERNELS = ("gn_residual_reduce", "gn_step")
+TRACKED = FUSION_KERNELS + TRACK_KERNELS
+
+
+def check_track_launches(m, launches, ranks=1):
+    """A tracked run launches each GN kernel once per GN iteration (on each
+    rank of a mesh)."""
+    iters = ranks * sum(e["gn_iters"] or 0 for e in m["frame_log"])
+    if not (iters > 0 and launches["gn_residual_reduce"] == launches["gn_step"]
+            == iters):
+        raise AssertionError(f"kernel launches {launches} for {iters} GN "
+                             f"iterations, want one of each per iteration")
 
 
 def check_outputs(m, results, launches, n_frames, cloud=True):
@@ -615,6 +635,7 @@ def phase_app(data, n_frames):
     m = run_app(data, results, ["--pose-file", "none", "--save-sdf"])
     launches = launch_counts()
     fused, n_faces, n_pts = check_outputs(m, results, launches, n_frames)
+    check_track_launches(m, launches)
     errs = rel_translation_errors(results, data)
     if not max(errs) < 0.01:
         raise AssertionError(f"relative translation errors {errs} (limit 1 cm)")
@@ -1167,6 +1188,7 @@ def phase_ablation_and_resume(data, n_frames, straight, straight_err):
     m = run_app(data, results, ["--pose-file", "none", "--scan-type", "base-sdf"])
     launches = launch_counts()
     fused, n_faces, _ = check_outputs(m, results, launches, n_frames, cloud=False)
+    check_track_launches(m, launches)
     errs = rel_translation_errors(results, data)
     if not max(errs) < BASE_SDF_ERR_LIMIT:
         raise AssertionError(f"base-sdf relative translation errors {errs}")
@@ -1249,61 +1271,30 @@ def synth_cfg(voxel_size):
         fusion=dataclasses.replace(cfg.fusion, trunc_voxels=5.0))
 
 
-def phase_pack(data, n_frames):
-    """Phase 4b: grad-mode tracking of golden frames 1-5 with and without
-    the packed 32-byte rows (`TrackerConfig.packed_row_gather`), in turns
-    (packed, unpacked, unpacked, packed) against the same map, which is fused
-    from the packed run's pose as the app does."""
-    import dataclasses
-
+def phase_pack(data, n_frames, smi):
+    """Phase 4b: golden frames 1-5 through `tools/track_bench.golden_phase`:
+    at every GN iteration the two tracking kernels held to their plain
+    versions (and the residual kernel to itself, bit for bit), the step
+    kernel on crafted systems, then each frame tracked in turns through the
+    kernels and the plain loop with and without the packed rows (track_ms,
+    launches and host reads per iteration, no row pack on the card; the
+    plain loop's two settings within PACK_POSE_TOL of each other, the
+    kernels' path within MESH_POSE_TOL of them: its sums go in another
+    order, as the sharded pass's do), and both kernels timed beside their
+    plain versions, bounds and launch floors."""
     import torch
     from gradient_sdf_tpu_torch.data import loaders
-    from gradient_sdf_tpu_torch.models import tracker
-    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+    from gradient_sdf_tpu_torch.tools import track_bench
 
+    if (track_bench.PACK_POSE_TOL, track_bench.PATH_POSE_TOL) != (
+            PACK_POSE_TOL, MESH_POSE_TOL):
+        raise AssertionError("track_bench's pose tolerances are not phase "
+                             "4b's and 15a's")
     dev = torch.device("cuda")
-    cfg = synth_cfg(0.02)
     loader = loaders.make_loader("synth", data)
-    K = loader.load_intrinsics()
-    m = GradSdfMap(cfg, device=dev)
-    R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-    ms = {True: [], False: []}
-    worst = 0.0
-    for f in loader.frames(0, n_frames):
-        depth = torch.as_tensor(f.depth, device=dev)
-        if f.index == 0:
-            m.update(depth, K, (R, t))
-            continue
-        res, times = {}, {True: [], False: []}
-        for packed in (True, False, False, True):
-            tcfg = dataclasses.replace(cfg.tracker, packed_row_gather=packed)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res[packed] = tracker.track_frame(m.grid, depth, K, R, t, m.cfg.grid,
-                                              m.cfg.fusion, tcfg)
-            torch.cuda.synchronize()
-            times[packed].append((time.perf_counter() - t0) * 1e3)
-        a, b = res[True], res[False]
-        diff = max(float((a.R - b.R).abs().max()), float((a.t - b.t).abs().max()))
-        if a.converged != b.converged or not diff <= PACK_POSE_TOL:
-            raise AssertionError(f"frame {f.index}: packed rows converged "
-                                 f"{a.converged} vs {b.converged}, poses "
-                                 f"differ by {diff}")
-        worst = max(worst, diff)
-        for k in (True, False):
-            ms[k].extend(times[k])
-        log(f"  phase4b frame {f.index}: track_ms packed rows "
-            f"{times[True][0]:.2f} / {times[True][1]:.2f}, without "
-            f"{times[False][0]:.2f} / {times[False][1]:.2f}; GN iters "
-            f"{a.num_iters} / {b.num_iters}")
-        R, t = a.R, a.t
-        if a.converged:
-            m.update(depth, K, (R, t))
-    mean = {k: sum(v) / len(v) for k, v in ms.items()}
-    log(f"phase4b track_ms on golden frames 1-{n_frames - 1}, in turns: packed "
-        f"rows (the default) mean {mean[True]:.2f} ms, without (query.tsdf_grad) "
-        f"mean {mean[False]:.2f} ms; poses differ by at most {worst:.3g} "
-        f"(limit {PACK_POSE_TOL})")
+    depths = [torch.as_tensor(f.depth, device=dev)
+              for f in loader.frames(0, n_frames)]
+    return track_bench.golden_phase(depths, loader.load_intrinsics(), smi)
 
 
 def host_ms(fn, reps=5):
@@ -1433,6 +1424,7 @@ def phase_box(n_frames=6):
     reset_launch_counts()
     mt = run_app(data, track, ["--pose-file", "none"], voxel_size="0.01")
     track_launches = launch_counts()
+    check_track_launches(mt, track_launches)
     errs = rel_translation_errors(track, data)
     log(f"phase12 box world with tracking (not gated): invalid frames "
         f"{mt['invalid_frames']}, relative translation errors "
@@ -1482,7 +1474,7 @@ def phase_box(n_frames=6):
         f"{r['bytes_bound_ms']:.5f}, march_ops_bound_ms {r['ops_bound_ms']:.5f}; "
         f"{r['bound_ms'] / r['ms']:.1%} reached)")
     return {"phase 12 (box scan3d GT poses)": (gt_launches, FUSION_KERNELS),
-            "phase 12 (box scan3d tracking)": (track_launches, FUSION_KERNELS),
+            "phase 12 (box scan3d tracking)": (track_launches, TRACKED),
             "phase 12 (box render)": (render_launches, ("raycast_march",))}
 
 
@@ -1531,8 +1523,9 @@ def phase_loaders(data, n_frames):
             f"{fused} fused, stamps {poses[0][0]}..{poses[-1][0]}, poses vs phase 4 "
             f"max |err| {err:.3g} (tolerance {tol:.3g}; two phase-4 runs differ "
             f"by {twice:.3g}), kernel launches {launches}, app wall {wall:.2f} s")
+        check_track_launches(m, launches)
         paths[f"phase 13 (scan3d --data-type {data_type})"] = (launches,
-                                                               FUSION_KERNELS)
+                                                               TRACKED)
     return paths
 
 
@@ -1563,7 +1556,8 @@ def phase_noisy():
             f"{m['ate_rmse'] * 1e3:.3f} mm over {m['ate_pairs']} frames, "
             f"{len(m['invalid_frames'])} unconverged, {fused} fused, track_ms "
             f"median {track[len(track) // 2]:.2f}, kernel launches {launches}")
-        paths[f"phase 14 (scan3d {scan_type}, noisy)"] = (launches, FUSION_KERNELS)
+        check_track_launches(m, launches)
+        paths[f"phase 14 (scan3d {scan_type}, noisy)"] = (launches, TRACKED)
     g = out["grad-sdf"]
     if not (g["ate_rmse"] < NOISY_ATE_LIMIT
             and len(g["invalid_frames"]) <= NOISY_UNCONVERGED_MAX):
@@ -1923,6 +1917,7 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
     if any(launches[k] != MESH_RANKS * fused for k in FUSION_KERNELS):
         raise AssertionError(f"mesh launches {launches} for {fused} fused "
                              f"frames on {MESH_RANKS} ranks")
+    check_track_launches(m, launches, ranks=MESH_RANKS)
     log(f"phase15a scan3d --devices {MESH_RANKS} --block-parallel {MESH_BLOCKS} "
         f"vs phase 4: {m['frames']} frames, {fused} fused, invalid "
         f"{m['invalid_frames']}, {m['num_blocks_active']} blocks; poses max "
@@ -1934,7 +1929,7 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
         iters = e["gn_iters"] or 0
         per_iter = ("" if not iters else
                     f", {(e['collective_calls'] - 2 * (e['fuse_ms'] is not None)) / iters:.0f} "
-                    f"per GN iteration (176 B each)")
+                    f"per GN iteration (116 B each: the 29 sums)")
         fmt = lambda x: "-" if x is None else f"{x:.2f}"
         log(f"  phase15a frame {e['frame']}: track {fmt(e['track_ms'])} ms "
             f"(phase 4 {fmt(e4['track_ms'])}), GN iters {e['gn_iters']} "
@@ -2012,7 +2007,7 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
         f"({fz['na_local']} allocated slots on rank 0) = plain bit for bit")
 
     paths = {f"phase 15 (scan3d --devices {MESH_RANKS})": (launches,
-                                                           FUSION_KERNELS),
+                                                           TRACKED),
              "phase 15 (sharded render)": ({"raycast_march": r["launches"]},
                                            ("raycast_march",))}
     return paths, {"scatter": fz["scatter_err"], "merge": 0.0, "march": 0.0}
@@ -2148,8 +2143,9 @@ def phase_replay(noisy14, smi):
             raise AssertionError(f"replay {mode}: ATE {m['ate_rmse']} m (limit "
                                  f"{NOISY_ATE_LIMIT}), {len(m['invalid_frames'])} "
                                  f"unconverged (limit {NOISY_UNCONVERGED_MAX})")
+        check_track_launches(m, launches)
         paths[f"phase 16 (scan3d --data-type tum, {mode}, run {k})"] = (
-            launches, FUSION_KERNELS)
+            launches, TRACKED)
         r = rb.summary(m)
         fl = m["frame_log"]
         # the same run's frames had each paid its synchronous decode
@@ -2209,7 +2205,8 @@ def main():
                      "--width", "640", "--height", "480", "--arc-deg", "4",
                      "--no-noise", "--device", "cuda"])
     launches, straight, straight_err = phase_app(data, n_frames)
-    phase_pack(data, n_frames)
+    track = phase_pack(data, n_frames, smi)
+    kstats["reduce"], kstats["step"] = track["reduce"], track["step"]
     phase_gt(data, n_frames)
 
     # PhotoBA: the JAX app test's protocol at full VGA width
@@ -2233,10 +2230,10 @@ def main():
                                               straight_err)
     phase_codecs()
     # each main path was counted from zero and launched its kernels
-    paths = {"phase 4 (scan3d)": (launches, FUSION_KERNELS),
-             "phase 6 (photoba)": (ba_launches, FUSION_KERNELS),
+    paths = {"phase 4 (scan3d)": (launches, TRACKED),
+             "phase 6 (photoba)": (ba_launches, TRACKED),
              "phase 9 (renders)": (render_launches, ("raycast_march",)),
-             "phase 10 (scan3d base-sdf)": (base_launches, FUSION_KERNELS)}
+             "phase 10 (scan3d base-sdf)": (base_launches, TRACKED)}
     paths.update(phase_box())
     paths.update(phase_loaders(data, n_frames))
     noisy_paths, noisy14 = phase_noisy()
@@ -2298,6 +2295,26 @@ def main():
         "timed_on": "phase 8: the render scene's 307,200 full-resolution rays, "
                     "unwindowed, in 8x4 pixel tiles",
         **kstats["march"],
+    }, {
+        "name": "gn_residual_reduce",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/gn_track.cu",
+        "replaces": "gradient_sdf_tpu/models/tracker.py:80",
+        "launches": counted_in("gn_residual_reduce")[0],
+        "launches_counted_in": counted_in("gn_residual_reduce")[1],
+        "timed_on": "phase 4b: golden frame 5's compacted points at its "
+                    "tracked pose, grad mode",
+        **kstats["reduce"],
+    }, {
+        "name": "gn_step",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/gn_track.cu",
+        "replaces": "gradient_sdf_tpu/models/tracker.py:206",
+        "launches": counted_in("gn_step")[0],
+        "launches_counted_in": counted_in("gn_step")[1],
+        "timed_on": "phase 4b: golden frame 5's first GN iteration's sums "
+                    "(the update applied)",
+        **kstats["step"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

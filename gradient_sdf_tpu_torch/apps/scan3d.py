@@ -171,11 +171,13 @@ def run_scan(args, *, check_replicated: bool = False) -> dict:
 
 
 def _launch_counts():
-    from ..ops.kernels import merge_clear, raycast_march, scatter_add
+    from ..ops.kernels import gn_track, merge_clear, raycast_march, scatter_add
 
     return {"scatter_add": scatter_add.launch_count,
             "merge_clear": merge_clear.launch_count,
-            "raycast_march": raycast_march.launch_count}
+            "raycast_march": raycast_march.launch_count,
+            "gn_residual_reduce": gn_track.launch_count,
+            "gn_step": gn_track.step_launch_count}
 
 
 def _run(args, block_parallel, check_replicated) -> dict:

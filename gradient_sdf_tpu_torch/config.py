@@ -127,7 +127,12 @@ class TrackerConfig:
     # array instead of 5 element gathers. Identical math (bit-equal
     # linearization, tests/test_tracker.py); measured on the v5e: dense
     # VGA tracking 59.3 -> 39.1 ms (PERF_NOTES.md round 3).
-    # PORT: no-op (tracking compacts to exactly the depth-valid pixels)
+    # PORT: a no-op on the card, where the GN residual kernel
+    # (ops/kernels/gn_track.py) reads the five SoA fields and no rows are
+    # packed (a layout choice: both give the same bits). The CPU path still
+    # honours it, as the JAX tracker does.
+    # PORT: compact_cap_frac is a no-op (tracking compacts to exactly the
+    # depth-valid pixels)
     compact_cap_frac: float = 0.5     # depth-valid pixels are compacted once
     # before the GN loop (z-gating is pose-independent) into a buffer of
     # this fraction of the strided pixel count; frames with more valid

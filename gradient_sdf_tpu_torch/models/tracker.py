@@ -12,13 +12,19 @@ residual of a 32-byte row packed once per frame, without it
 base-SDF ablation (`MapPixelSdf::tsdf`: 8 corner gathers, a residual
 counts only where all 8 corners are observed, no packed rows).
 
-The GN loop runs on the host: one device->host read per iteration of the
-convergence and NaN flags. It keeps the JAX loop's rules exactly:
+The GN loop runs on the host and keeps the JAX loop's rules exactly:
   * at most `num_iterations` (25) iterations;
   * converged when ||xi||^2 < conv_threshold^2, tested BEFORE the update
     is applied (a converging step is not applied) (:86-91);
   * a NaN step is skipped and iteration continues (:94-95);
   * non-converged frames are not fused (`main_scan_3d.cpp:258-266`).
+On a CUDA map an iteration is two hand-written kernels and one read of
+16 bytes (`gn_loop`): `ops/kernels/gn_track.gn_residual_reduce` (the pass
+above, reading the SoA fields, so `TrackerConfig.packed_row_gather` is a
+no-op there) and `gn_track.gn_step` (the solve and the pose update, in
+place on the card). On the CPU the loop is the plain PyTorch one
+(`track_points_plain`, `gauss_newton`): one read per iteration of the
+convergence and NaN flags, with or without the packed rows.
 
 Depth-gating is pose-independent, so the valid pixels are compacted once
 before the loop, to exactly the depth-valid count (a dynamic shape);
@@ -36,6 +42,7 @@ import torch
 from ..config import FusionConfig, GridConfig, TrackerConfig
 from ..ops import query
 from ..ops import voxel_grid as vg
+from ..ops.kernels import gn_track
 from ..utils import se3
 
 
@@ -157,6 +164,13 @@ def backproject_grid(depth: torch.Tensor, K, sampling: int = 1):
     return pts, z.reshape(-1)
 
 
+def compact_points(depth: torch.Tensor, K, fcfg: FusionConfig,
+                   tcfg: TrackerConfig) -> torch.Tensor:
+    """The frame's depth-valid camera-frame points [N, 3] (one host sync)."""
+    pts_cam, z = backproject_grid(depth, K, tcfg.sampling)
+    return pts_cam[(z > fcfg.z_min) & (z < fcfg.z_max)]
+
+
 def track_frame(
     grid: vg.VoxelGrid,
     depth: torch.Tensor,
@@ -168,49 +182,77 @@ def track_frame(
     tcfg: TrackerConfig,
     mode: str = "grad",
 ) -> TrackResult:
-    """Refine pose (R0, t0) against the current map for one depth frame."""
+    """Refine pose (R0, t0) against the current map for one depth frame:
+    the kernels' loop on a CUDA map, the plain one on the CPU (module
+    note)."""
     dev = depth.device
-    pts_cam, z = backproject_grid(depth, K, tcfg.sampling)
-    z_valid = (z > fcfg.z_min) & (z < fcfg.z_max)
-    pts = pts_cam[z_valid]
-    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    pts = compact_points(depth, K, fcfg, tcfg)
+    if dev.type == "cuda":
+        return gn_loop(
+            lambda R, t: gn_track.gn_residual_reduce(pts, R, t, grid, gcfg,
+                                                     fcfg, mode=mode),
+            R0, t0, tcfg, dev)
+    return track_points_plain(grid, pts, R0, t0, gcfg, fcfg, tcfg, mode)
+
+
+def track_points_plain(grid, pts, R0, t0, gcfg, fcfg, tcfg,
+                       mode: str = "grad") -> TrackResult:
+    """The plain PyTorch loop over compacted points: `_residual_pass`
+    (with the packed rows where `tcfg.packed_row_gather` asks for them in
+    grad mode) under `gauss_newton`. The CPU path of `track_frame`, and on
+    the card the kernels' plain version."""
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
     packed = (_pack_fields(grid)
               if mode == "grad" and tcfg.packed_row_gather else None)
     return gauss_newton(
         lambda R, t: _residual_pass(grid, pts, valid, R, t, gcfg, fcfg,
                                     packed, mode),
-        R0, t0, tcfg, dev)
+        R0, t0, tcfg, pts.device)
 
 
 def gauss_newton(residual_pass, R0, t0, tcfg: TrackerConfig,
                  dev) -> TrackResult:
-    """The GN loop of `track_frame` (module note) around
-    `residual_pass(R, t) -> (E, g, H, count)`; the sharded tracker
-    (`parallel/sharding.py`) passes its own pass."""
+    """The plain GN loop (module note) around `residual_pass(R, t) -> (E,
+    g, H, count)`: the step is `gn_track.gn_update`, and the host reads the
+    two flags once per iteration."""
     conv_sq = tcfg.conv_threshold * tcfg.conv_threshold
-    eye6 = 1e-12 * torch.eye(6, dtype=torch.float32, device=dev)
-
     R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
     t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
     k, converged = 0, False
     E = cnt = None
     while k < tcfg.num_iterations and not converged:
         E, g, H, cnt = residual_pass(R, t)
-        # Gauss-Newton step; the tiny diagonal keeps the solve finite when
-        # H is singular (no residuals). solve_ex does not raise on a
-        # singular H: a NaN step is skipped below, as in the JAX loop.
-        xi = tcfg.damping * torch.linalg.solve_ex(H + eye6, g)[0]
-        flags = torch.stack([torch.sum(xi * xi) < conv_sq,
-                             torch.any(torch.isnan(xi))])
-        small, bad = (bool(f) for f in flags.tolist())
-        if not small and not bad:
-            dR, dt = se3.se3_exp(-xi)
-            R, t = se3.se3_mul(dR, dt, R, t)
-        converged = small
+        R, t, small, bad = gn_track.gn_update(H, g, R, t, tcfg.damping,
+                                              conv_sq)
+        converged = bool(small)
         k += 1
     return TrackResult(R=R, t=t, converged=converged, num_iters=k,
                        energy=float(E) if E is not None else 0.0,
                        num_valid=int(cnt) if cnt is not None else 0)
+
+
+def gn_loop(reduce, R0, t0, tcfg: TrackerConfig, dev) -> TrackResult:
+    """The GN loop (module note) with its body on the device: per
+    iteration `reduce(R, t)` gives the residual sums (`gn_track.SUMS`),
+    `gn_track.gn_step` solves and updates (R, t) in place, and the host
+    reads the step's 16-byte status once. The single-card tracker passes
+    `gn_track.gn_residual_reduce`; the mesh passes that over its shard plus
+    one all_reduce (`parallel/sharding.py`)."""
+    conv_sq = tcfg.conv_threshold * tcfg.conv_threshold
+    R = torch.as_tensor(R0, dtype=torch.float32, device=dev).clone(
+        memory_format=torch.contiguous_format)
+    t = torch.as_tensor(t0, dtype=torch.float32, device=dev).clone(
+        memory_format=torch.contiguous_format)
+    status = torch.zeros(4, dtype=torch.float32, device=dev)
+    k, converged, E, cnt = 0, False, 0.0, 0.0
+    while k < tcfg.num_iterations and not converged:
+        gn_track.gn_step(reduce(R, t), R, t, status, damping=tcfg.damping,
+                         conv_sq=conv_sq)
+        small, _, E, cnt = status.tolist()
+        converged = small != 0.0
+        k += 1
+    return TrackResult(R=R, t=t, converged=converged, num_iters=k,
+                       energy=E, num_valid=int(cnt))
 
 
 def track_and_fuse_frame(grid, depth, K, R0, t0, cache, gcfg, fcfg, tcfg,

@@ -28,9 +28,12 @@ LOG_NAME = "build.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # flags for single sources. The march decides which voxel a probe reads by
-# rounding o + s*d: it is built without fused multiply-adds, so that it and
-# its plain PyTorch version round alike (see the note in the source).
-SOURCE_FLAGS = {"raycast_march.cu": ["-fmad=false"]}
+# rounding o + s*d, the GN residual pass which voxel a point reads by
+# rounding (R x + t) / vs: both are built without fused multiply-adds, so
+# that each and its plain PyTorch version round alike (see the notes in the
+# sources).
+SOURCE_FLAGS = {"raycast_march.cu": ["-fmad=false"],
+                "gn_track.cu": ["-fmad=false"]}
 
 _lib = None
 build_seconds = None   # wall time of this process's build (0.0 if reused)
@@ -93,6 +96,17 @@ def _declare(lib):
         [vp] * 13 + [i64] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 10
         + [ctypes.c_int] * 2 + [vp])
     lib.gsdf_raycast_march_f32.restype = ctypes.c_int
+    # pts, n, R, t, directory, five fields, partials, ticket, sums; mode,
+    # dir_dim, block_shape, slot_lo, slot_hi; vs, grad_scale; stream
+    lib.gsdf_gn_residual_reduce_f32.argtypes = (
+        [vp, i64] + [vp] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [vp])
+    lib.gsdf_gn_residual_reduce_f32.restype = ctypes.c_int
+    lib.gsdf_gn_ctas.argtypes = []
+    lib.gsdf_gn_ctas.restype = ctypes.c_int
+    # sums, R, t, status, damping, conv_sq, stream
+    lib.gsdf_gn_step_f32.argtypes = [vp] * 4 + [ctypes.c_float] * 2 + [vp]
+    lib.gsdf_gn_step_f32.restype = ctypes.c_int
 
 
 def _compile(sources, out_dir, target) -> str:

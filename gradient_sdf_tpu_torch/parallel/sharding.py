@@ -18,8 +18,10 @@ an error, and `check_replicated` tests it outright (tests and the card's
 smoke run it every frame).
 
   * Tracking: each rank takes the depth-valid pixels of its ray slice and
-    resolves only the voxels its block shard owns (owner-computes); one
-    all_reduce of (E, g, H, count) over the world per GN iteration.
+    resolves only the voxels its block shard owns (owner-computes), through
+    the GN residual kernel with the shard's slot window; one all_reduce of
+    the 29 sums (E, g, H's upper triangle, count) over the world per GN
+    iteration, then every rank runs the GN step kernel on the same sums.
   * Fusion: each rank scatters its 1/D slice of the frame's samples. The
     touched-block set comes from one all_reduce of an int32 [nb] vector;
     the samples go through the CUDA scatter kernel into a compact
@@ -54,9 +56,9 @@ from ..models import tracker as tracker_mod
 from ..ops import fusion as fusion_mod
 from ..ops import raycast as rc_mod
 from ..ops import voxel_grid as vg
+from ..ops.kernels import gn_track
 from ..ops.kernels.merge_clear import merge_clear
 from ..ops.kernels.scatter_add import new_accumulator, scatter_add_fields
-from ..utils import se3
 from .mesh import (BLOCK_AXIS, RAY_AXIS, WORLD, Mesh, all_gather_rows,
                    broadcast, psum, shard_rows)
 
@@ -144,67 +146,29 @@ def check_replicated(mesh: Mesh, grid: vg.VoxelGrid, R, t, flags=()):
 # ---------------------------------------------------------------------------
 
 
-def _owned_voxel_fields(grid: vg.VoxelGrid, pts: torch.Tensor, gcfg, lo: int):
-    """Owner-computes query against the rank's block shard: for points whose
-    voxel lies in an allocated block of rows [lo, lo + nb_local) with
-    weight > 0, its (dist, weight, gx, gy, gz); zeros and owned=False
-    elsewhere. Exactly one rank of a blocks group owns each allocated
-    voxel, so a sum over the block axis of an owned-masked quantity is the
-    global one. Returns those five, `owned` and the voxel indices."""
-    vi = vg.point_to_voxel(pts, gcfg.voxel_size)
-    block, local = vg.voxel_to_block(vi, gcfg)
-    slot = vg.lookup_keys(grid, vg.pack_key(block, gcfg), gcfg)
-    m = grid.dist.shape[0]
-    owned = (slot >= lo) & (slot < lo + m)
-    lin = torch.where(owned, (slot - lo) * gcfg.voxels_per_block + local,
-                      torch.zeros_like(slot)).long()
-    vals = [vg.flat_field(getattr(grid, f))[lin] for f in FIELDS]
-    owned = owned & (vals[1] > 0.0)
-    zero = torch.zeros_like(vals[0])
-    return [torch.where(owned, v, zero) for v in vals] + [owned, vi]
-
-
-def sharded_residual_pass(mesh: Mesh, grid, points_cam, z_valid, R, t, gcfg,
-                          fcfg):
-    """(E, g, H, count) over every rank's pixels: `points_cam`/`z_valid` are
-    this rank's ray slice; residuals resolve owner-computes against the
-    block shard (the semi-implicit query, `query.tsdf_grad`'s formula) and
-    one all_reduce over the world sums them. Replicated results."""
+def sharded_residual_pass(mesh: Mesh, grid, pts, R, t, gcfg, fcfg):
+    """The residual sums (`gn_track.SUMS`) over every rank's points: `pts`
+    are this rank's ray slice of the compacted points; each rank resolves
+    only the voxels of the blocks its shard holds (owner-computes: exactly
+    one rank of a blocks group owns each allocated voxel), through
+    `gn_track.gn_residual_reduce` with the shard's slot window, and one
+    all_reduce over the world sums them. Replicated results."""
     lo, _ = block_range(mesh, grid.num_blocks)
-    pts = se3.se3_apply(R, t, points_cam)
-    dist, _, gx, gy, gz, owned, vi = _owned_voxel_fields(grid, pts, gcfg, lo)
-    valid = z_valid & owned
-    inv_norm = 1.0 / torch.clamp(torch.sqrt(gx * gx + gy * gy + gz * gz),
-                                 min=1e-12)
-    s = fcfg.grad_scale * inv_norm
-    cmp = vi.to(torch.float32) * gcfg.voxel_size - pts
-    phi = dist + s * (gx * cmp[..., 0] + gy * cmp[..., 1] + gz * cmp[..., 2])
-    grad = torch.stack([s * gx, s * gy, s * gz], dim=-1)
-    phi = torch.where(valid, phi, torch.zeros_like(phi))
-    grad = torch.where(valid[..., None], grad, torch.zeros_like(grad))
-    J = torch.cat([grad, torch.linalg.cross(pts, grad, dim=-1)], dim=-1)
-    sums = torch.cat([torch.sum(phi * phi)[None],
-                      torch.sum(phi[..., None] * J, dim=0),
-                      (J.T @ J).reshape(36),
-                      valid.sum(dtype=torch.float32)[None]])
-    psum(sums, mesh, WORLD)
-    return (sums[0], sums[1:7], sums[7:43].reshape(6, 6),
-            sums[43].round().to(torch.int32))
+    sums = gn_track.gn_residual_reduce(pts, R, t, grid, gcfg, fcfg,
+                                       mode="grad", slot_lo=lo)
+    return psum(sums, mesh, WORLD)
 
 
 def sharded_track_frame(mesh: Mesh, grid, depth, K, R0, t0, gcfg, fcfg,
                         tcfg) -> tracker_mod.TrackResult:
-    """Gauss-Newton tracking (the port's host-checked loop,
-    `tracker.track_frame`) with the residual pass sharded over the mesh:
-    the depth-valid pixels are compacted on every rank, and each rank takes
-    its slice of the ray axis."""
-    pts_cam, z = tracker_mod.backproject_grid(depth, K, tcfg.sampling)
-    pts = pts_cam[(z > fcfg.z_min) & (z < fcfg.z_max)]
-    pts = pts[shard_rows(pts.shape[0], mesh, RAY_AXIS)]
-    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
-    return tracker_mod.gauss_newton(
-        lambda R, t: sharded_residual_pass(mesh, grid, pts, valid, R, t,
-                                           gcfg, fcfg),
+    """Gauss-Newton tracking (`tracker.gn_loop`) with the residual pass
+    sharded over the mesh: the depth-valid pixels are compacted on every
+    rank, each rank takes its slice of the ray axis, and every rank runs
+    `gn_track.gn_step` on the same replicated sums."""
+    pts = tracker_mod.compact_points(depth, K, fcfg, tcfg)
+    pts = pts[shard_rows(pts.shape[0], mesh, RAY_AXIS)].contiguous()
+    return tracker_mod.gn_loop(
+        lambda R, t: sharded_residual_pass(mesh, grid, pts, R, t, gcfg, fcfg),
         R0, t0, tcfg, depth.device)
 
 
