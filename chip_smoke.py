@@ -15,9 +15,10 @@ and the high-resolution exports; phase 6), the same app on textured
 spheres from ground-truth poses with BA started from perturbed poses
 (phase 6b: BA has to win energy and pose error back), and one BA
 alternation at F = 30 keyframes x V = 102400 voxels x 640x480 images, card
-against CPU (phase 7). Phase 4b holds the two GN tracking kernels to their
-plain versions at every iteration of golden frames 1-5 and times tracking
-through them beside the plain loop with and without the packed rows
+against CPU (phase 7). Phase 4b holds the GN loop kernel (one launch a
+tracked frame) to its plain version at every iteration of golden frames 1-5,
+with its one-pass launch and the mesh's step kernel, and times tracking
+through it beside the plain loop with and without the packed rows
 (`tools/track_bench.py`); phases 8-9 hold the march kernel to its plain version and
 render; phase 10 runs the base-SDF ablation and checkpoint/resume. Phase 11
 checks the host PNG and JPEG decoders built here; phase 12 the box world at
@@ -48,10 +49,11 @@ launch count on the main paths (each counted from zero, and named in
 time beside the plain version's, the bound and (for the scatter and its
 F = 1 launch, `scatter_add_rows`) the bare `index_add_` as the library
 yardstick, on golden frame 5's real samples and, for the march, on the
-render scene's rays, for the GN kernels on golden frame 5's points (with
-`torch.linalg.solve_ex` on the 6x6 as the step's yardstick); phase 2b also
-times an empty kernel, the launch floor beside `merge_clear`, and phase 4b
-beside the GN kernels; and last
+render scene's rays, for the GN kernels on golden frame 5's points (the
+loop kernel per frame from its start pose; `torch.linalg.solve_ex` on the
+6x6 as the step's yardstick); phase 2b also times an empty kernel, the
+launch floor beside `merge_clear`, and phase 4b beside the GN kernels; and
+last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -165,12 +167,14 @@ def phase_build():
 
     lib = _build.load()
     for name in ("gsdf_scatter_add_f32", "gsdf_merge_clear_f32",
-                 "gsdf_raycast_march_f32", "gsdf_gn_residual_reduce_f32",
-                 "gsdf_gn_step_f32"):
+                 "gsdf_raycast_march_f32", "gsdf_gn_track_loop_f32",
+                 "gsdf_gn_step_f32", "gsdf_gn_cluster_shape"):
         getattr(lib, name)   # AttributeError if the library lacks a kernel
     ptxas = [l.strip() for l in _build.build_log.splitlines() if "ptxas" in l
              or "spill" in l]
-    spills = [l for l in ptxas if re.search(r"[1-9]\d* bytes spill", l)]
+    # each spill line follows the "Function properties for <kernel>" line
+    spills = [f"{ptxas[i - 1]}: {l}" for i, l in enumerate(ptxas)
+              if re.search(r"[1-9]\d* bytes spill", l)]
     if spills:
         raise AssertionError(f"register spills: {spills}")
     regs = [int(m.group(1)) for l in ptxas
@@ -572,23 +576,37 @@ def reset_launch_counts():
 def launch_counts():
     counts = {name: mod.launch_count for name, mod in kernel_modules().items()}
     counts["scatter_add_rows"] = kernel_modules()["scatter_add"].rows_launch_count
-    counts["gn_step"] = kernel_modules()["gn_residual_reduce"].step_launch_count
+    gt = kernel_modules()["gn_residual_reduce"]
+    counts["gn_step"] = gt.step_launch_count
+    counts["gn_track_loop"] = gt.loop_launch_count
     return counts
 
 
 FUSION_KERNELS = ("scatter_add", "merge_clear")
-TRACK_KERNELS = ("gn_residual_reduce", "gn_step")
-TRACKED = FUSION_KERNELS + TRACK_KERNELS
+# one card tracks a frame in one launch of the loop kernel; a mesh rank runs
+# the one-pass launch and the step kernel once per GN iteration
+TRACKED = FUSION_KERNELS + ("gn_track_loop",)
+MESH_TRACKED = FUSION_KERNELS + ("gn_residual_reduce", "gn_step")
 
 
 def check_track_launches(m, launches, ranks=1):
-    """A tracked run launches each GN kernel once per GN iteration (on each
-    rank of a mesh)."""
+    """On one card a tracked run launches the GN loop kernel once per
+    tracked frame and neither the one-pass launch nor the step kernel; on
+    each rank of a mesh it launches the one-pass launch and the step kernel
+    once per GN iteration and the loop kernel never."""
+    frames = sum(e["gn_iters"] is not None for e in m["frame_log"])
     iters = ranks * sum(e["gn_iters"] or 0 for e in m["frame_log"])
-    if not (iters > 0 and launches["gn_residual_reduce"] == launches["gn_step"]
-            == iters):
-        raise AssertionError(f"kernel launches {launches} for {iters} GN "
-                             f"iterations, want one of each per iteration")
+    if ranks == 1:
+        ok = (frames > 0 and launches["gn_track_loop"] == frames
+              and launches["gn_residual_reduce"] == launches["gn_step"] == 0)
+        want = f"one loop launch per frame for {frames} tracked frames"
+    else:
+        ok = (iters > 0 and launches["gn_track_loop"] == 0
+              and launches["gn_residual_reduce"] == launches["gn_step"] == iters)
+        want = (f"one one-pass and one step launch per GN iteration and rank "
+                f"for {iters}")
+    if not ok:
+        raise AssertionError(f"kernel launches {launches}; want {want}")
 
 
 def check_outputs(m, results, launches, n_frames, cloud=True):
@@ -1273,15 +1291,17 @@ def synth_cfg(voxel_size):
 
 def phase_pack(data, n_frames, smi):
     """Phase 4b: golden frames 1-5 through `tools/track_bench.golden_phase`:
-    at every GN iteration the two tracking kernels held to their plain
-    versions (and the residual kernel to itself, bit for bit), the step
-    kernel on crafted systems, then each frame tracked in turns through the
-    kernels and the plain loop with and without the packed rows (track_ms,
-    launches and host reads per iteration, no row pack on the card; the
-    plain loop's two settings within PACK_POSE_TOL of each other, the
-    kernels' path within MESH_POSE_TOL of them: its sums go in another
-    order, as the sharded pass's do), and both kernels timed beside their
-    plain versions, bounds and launch floors."""
+    in grad and trilinear mode, at every GN iteration the loop kernel held
+    to its plain version (its one-pass launch's sums, and itself, bit for
+    bit; its step = the step kernel's bit for bit), its full run to the
+    chain of its single iterations bit for bit; the step kernel on crafted
+    systems; then each frame tracked in turns through the loop kernel and
+    the plain loop with and without the packed rows (track_ms, one launch
+    and two host reads a frame, no row pack on the card; the plain loop's
+    two settings within PACK_POSE_TOL of each other, the kernel's path
+    within MESH_POSE_TOL of them: its sums go in another order, as the
+    sharded pass's do), and the three kernels timed beside their plain
+    versions, bounds and launch floors."""
     import torch
     from gradient_sdf_tpu_torch.data import loaders
     from gradient_sdf_tpu_torch.tools import track_bench
@@ -2007,7 +2027,7 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
         f"({fz['na_local']} allocated slots on rank 0) = plain bit for bit")
 
     paths = {f"phase 15 (scan3d --devices {MESH_RANKS})": (launches,
-                                                           TRACKED),
+                                                           MESH_TRACKED),
              "phase 15 (sharded render)": ({"raycast_march": r["launches"]},
                                            ("raycast_march",))}
     return paths, {"scatter": fz["scatter_err"], "merge": 0.0, "march": 0.0}
@@ -2206,7 +2226,8 @@ def main():
                      "--no-noise", "--device", "cuda"])
     launches, straight, straight_err = phase_app(data, n_frames)
     track = phase_pack(data, n_frames, smi)
-    kstats["reduce"], kstats["step"] = track["reduce"], track["step"]
+    kstats["loop"], kstats["reduce"], kstats["step"] = (
+        track["loop"], track["reduce"], track["step"])
     phase_gt(data, n_frames)
 
     # PhotoBA: the JAX app test's protocol at full VGA width
@@ -2296,6 +2317,17 @@ def main():
                     "unwindowed, in 8x4 pixel tiles",
         **kstats["march"],
     }, {
+        "name": "gn_track_loop",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/gn_track.cu",
+        "replaces": "gradient_sdf_tpu/models/tracker.py:201",
+        "launches": counted_in("gn_track_loop")[0],
+        "launches_counted_in": counted_in("gn_track_loop")[1],
+        "timed_on": "phase 4b: golden frame 5's compacted points, the whole "
+                    "GN loop from the frame's start pose, grad mode (ms a "
+                    "frame; ms_per_iteration beside it)",
+        **kstats["loop"],
+    }, {
         "name": "gn_residual_reduce",
         "route": "cuda",
         "source": "gradient_sdf_tpu_torch/csrc/gn_track.cu",
@@ -2303,7 +2335,8 @@ def main():
         "launches": counted_in("gn_residual_reduce")[0],
         "launches_counted_in": counted_in("gn_residual_reduce")[1],
         "timed_on": "phase 4b: golden frame 5's compacted points at its "
-                    "tracked pose, grad mode",
+                    "start pose, grad mode (the loop kernel's one-pass "
+                    "launch, which the mesh runs)",
         **kstats["reduce"],
     }, {
         "name": "gn_step",
@@ -2313,7 +2346,7 @@ def main():
         "launches": counted_in("gn_step")[0],
         "launches_counted_in": counted_in("gn_step")[1],
         "timed_on": "phase 4b: golden frame 5's first GN iteration's sums "
-                    "(the update applied)",
+                    "(the update applied; the mesh's step)",
         **kstats["step"],
     }]}))
     log(json.dumps({"ok": True, "device": {

@@ -176,6 +176,7 @@ def _launch_counts():
     return {"scatter_add": scatter_add.launch_count,
             "merge_clear": merge_clear.launch_count,
             "raycast_march": raycast_march.launch_count,
+            "gn_track_loop": gn_track.loop_launch_count,
             "gn_residual_reduce": gn_track.launch_count,
             "gn_step": gn_track.step_launch_count}
 

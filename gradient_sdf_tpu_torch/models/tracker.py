@@ -12,19 +12,21 @@ residual of a 32-byte row packed once per frame, without it
 base-SDF ablation (`MapPixelSdf::tsdf`: 8 corner gathers, a residual
 counts only where all 8 corners are observed, no packed rows).
 
-The GN loop runs on the host and keeps the JAX loop's rules exactly:
+The GN loop keeps the JAX loop's rules exactly:
   * at most `num_iterations` (25) iterations;
   * converged when ||xi||^2 < conv_threshold^2, tested BEFORE the update
     is applied (a converging step is not applied) (:86-91);
   * a NaN step is skipped and iteration continues (:94-95);
   * non-converged frames are not fused (`main_scan_3d.cpp:258-266`).
-On a CUDA map an iteration is two hand-written kernels and one read of
-16 bytes (`gn_loop`): `ops/kernels/gn_track.gn_residual_reduce` (the pass
-above, reading the SoA fields, so `TrackerConfig.packed_row_gather` is a
-no-op there) and `gn_track.gn_step` (the solve and the pose update, in
-place on the card). On the CPU the loop is the plain PyTorch one
-(`track_points_plain`, `gauss_newton`): one read per iteration of the
-convergence and NaN flags, with or without the packed rows.
+On a CUDA map the whole loop is one hand-written kernel,
+`ops/kernels/gn_track.gn_track` (one thread-block cluster runs every
+iteration on the card, as the JAX package's `lax.while_loop` does; it reads
+the SoA fields, so `TrackerConfig.packed_row_gather` is a no-op there), and
+the host reads its 20-byte status once per frame. On the CPU the loop is
+the plain PyTorch one (`track_points_plain`, `gauss_newton`): one read per
+iteration of the convergence and NaN flags, with or without the packed
+rows. A mesh of ranks runs `gn_loop`: per iteration the one-pass launch
+of the same kernel over its shard, an all_reduce, and `gn_track.gn_step`.
 
 Depth-gating is pose-independent, so the valid pixels are compacted once
 before the loop, to exactly the depth-valid count (a dynamic shape);
@@ -183,16 +185,27 @@ def track_frame(
     mode: str = "grad",
 ) -> TrackResult:
     """Refine pose (R0, t0) against the current map for one depth frame:
-    the kernels' loop on a CUDA map, the plain one on the CPU (module
+    the loop kernel on a CUDA map, the plain loop on the CPU (module
     note)."""
     dev = depth.device
     pts = compact_points(depth, K, fcfg, tcfg)
     if dev.type == "cuda":
-        return gn_loop(
-            lambda R, t: gn_track.gn_residual_reduce(pts, R, t, grid, gcfg,
-                                                     fcfg, mode=mode),
-            R0, t0, tcfg, dev)
+        R, t = _pose_copy(R0, t0, dev)
+        status = gn_track.gn_track(
+            pts, R, t, grid, gcfg, fcfg, mode=mode,
+            num_iterations=tcfg.num_iterations, damping=tcfg.damping,
+            conv_sq=tcfg.conv_threshold * tcfg.conv_threshold)
+        small, _, E, cnt, iters = status.tolist()
+        return TrackResult(R=R, t=t, converged=small != 0.0,
+                           num_iters=int(iters), energy=E, num_valid=int(cnt))
     return track_points_plain(grid, pts, R0, t0, gcfg, fcfg, tcfg, mode)
+
+
+def _pose_copy(R0, t0, dev):
+    """Contiguous float32 copies of the pose on `dev`, for the kernels to
+    update in place."""
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev).clone(
+        memory_format=torch.contiguous_format) for a in (R0, t0))
 
 
 def track_points_plain(grid, pts, R0, t0, gcfg, fcfg, tcfg,
@@ -232,17 +245,14 @@ def gauss_newton(residual_pass, R0, t0, tcfg: TrackerConfig,
 
 
 def gn_loop(reduce, R0, t0, tcfg: TrackerConfig, dev) -> TrackResult:
-    """The GN loop (module note) with its body on the device: per
-    iteration `reduce(R, t)` gives the residual sums (`gn_track.SUMS`),
-    `gn_track.gn_step` solves and updates (R, t) in place, and the host
-    reads the step's 16-byte status once. The single-card tracker passes
-    `gn_track.gn_residual_reduce`; the mesh passes that over its shard plus
-    one all_reduce (`parallel/sharding.py`)."""
+    """The GN loop (module note) with its body on the device and its
+    control on the host: per iteration `reduce(R, t)` gives the residual
+    sums (`gn_track.SUMS`), `gn_track.gn_step` solves and updates (R, t) in
+    place, and the host reads the step's 16-byte status once. The mesh
+    passes `gn_track.gn_residual_reduce` over its shard plus one all_reduce
+    (`parallel/sharding.py`)."""
     conv_sq = tcfg.conv_threshold * tcfg.conv_threshold
-    R = torch.as_tensor(R0, dtype=torch.float32, device=dev).clone(
-        memory_format=torch.contiguous_format)
-    t = torch.as_tensor(t0, dtype=torch.float32, device=dev).clone(
-        memory_format=torch.contiguous_format)
+    R, t = _pose_copy(R0, t0, dev)
     status = torch.zeros(4, dtype=torch.float32, device=dev)
     k, converged, E, cnt = 0, False, 0.0, 0.0
     while k < tcfg.num_iterations and not converged:

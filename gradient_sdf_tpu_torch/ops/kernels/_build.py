@@ -96,17 +96,28 @@ def _declare(lib):
         [vp] * 13 + [i64] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 10
         + [ctypes.c_int] * 2 + [vp])
     lib.gsdf_raycast_march_f32.restype = ctypes.c_int
-    # pts, n, R, t, directory, five fields, partials, ticket, sums; mode,
-    # dir_dim, block_shape, slot_lo, slot_hi; vs, grad_scale; stream
-    lib.gsdf_gn_residual_reduce_f32.argtypes = (
-        [vp, i64] + [vp] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-        + [vp])
-    lib.gsdf_gn_residual_reduce_f32.restype = ctypes.c_int
-    lib.gsdf_gn_ctas.argtypes = []
-    lib.gsdf_gn_ctas.restype = ctypes.c_int
+    declare_gn_track_loop(lib)
+    # mode, int[3] out: the loop's cluster shape and how many fit
+    lib.gsdf_gn_cluster_shape.argtypes = [ctypes.c_int, vp]
+    lib.gsdf_gn_cluster_shape.restype = ctypes.c_int
+    # stream: the empty kernel at the loop's one-cluster launch
+    lib.gsdf_gn_cluster_empty.argtypes = [vp]
+    lib.gsdf_gn_cluster_empty.restype = ctypes.c_int
     # sums, R, t, status, damping, conv_sq, stream
     lib.gsdf_gn_step_f32.argtypes = [vp] * 4 + [ctypes.c_float] * 2 + [vp]
     lib.gsdf_gn_step_f32.restype = ctypes.c_int
+
+
+def declare_gn_track_loop(lib):
+    """The argument types of `gsdf_gn_track_loop_f32`: pts, n, R, t,
+    directory, five fields, status, sums; mode, dir_dim, block_shape,
+    slot_lo, slot_hi, num_iterations, do_step; vs, grad_scale, damping,
+    conv_sq; stream."""
+    vp = ctypes.c_void_p
+    lib.gsdf_gn_track_loop_f32.argtypes = (
+        [vp, ctypes.c_int64] + [vp] * 10 + [ctypes.c_int] * 7
+        + [ctypes.c_float] * 4 + [vp])
+    lib.gsdf_gn_track_loop_f32.restype = ctypes.c_int
 
 
 def _compile(sources, out_dir, target) -> str:

@@ -1,22 +1,29 @@
-"""gn_track: the body of the Gauss-Newton tracking loop, as two kernels.
+"""gn_track: the Gauss-Newton tracking loop of one frame, as one kernel.
 
-`gn_residual_reduce` is one residual pass of the tracker: every compacted
-depth point x goes to p = R x + t, is queried against the SDF (`mode`
-"grad": `query.tsdf_grad`, the nearest voxel plus the stored gradient's
-correction; "trilinear": `query.tsdf_trilinear`, counted only where all 8
-corners are observed), and the residuals' sums come back as one float32
-vector of 29 (`SUMS`): E = sum phi^2, g = sum phi J (6), the upper triangle
-of H = sum J J^T (21, row-major, `TRIU`) and the count, with J = [grad,
-p x grad]. `gn_step` turns those sums into the step: xi = damping x solve(H
-+ 1e-12 I, g), small = xi.xi < conv_sq, bad = any(isnan(xi)), and where
-neither, (R, t) <- exp(-xi) (R, t), in place; it writes a 16-byte status
-(small, bad, E, count), the one read the host makes per GN iteration.
+One residual pass of the tracker takes every compacted depth point x to p
+= R x + t, queries it against the SDF (`mode` "grad": `query.tsdf_grad`,
+the nearest voxel plus the stored gradient's correction; "trilinear":
+`query.tsdf_trilinear`, counted only where all 8 corners are observed) and
+sums the residuals into one float32 vector of 29 (`SUMS`): E = sum phi^2,
+g = sum phi J (6), the upper triangle of H = sum J J^T (21, row-major,
+`TRIU`) and the count, with J = [grad, p x grad]. One step turns those sums
+into xi = damping x solve(H + 1e-12 I, g), small = xi.xi < conv_sq, bad =
+any(isnan(xi)), and where neither, (R, t) <- exp(-xi) (R, t).
 
-The JAX package compiles this body into its jitted `lax.while_loop`
-(`gradient_sdf_tpu/models/tracker.py:80-107` and `:206-222`); it has no TPU
-kernel. On the card it is the hand-written CUDA of `csrc/gn_track.cu` (see
-the note there): on a CUDA tensor each wrapper launches its kernel or
-raises; on a CPU tensor it takes its plain version,
+`gn_track` runs a frame's whole loop, up to `num_iterations` passes and
+steps, ending when `small` is set (a NaN step is skipped), with R and t
+updated in place and one status vector out (`STATUS`: small, bad, E, count,
+iterations): the one read the host makes per frame. `gn_residual_reduce`
+is one pass's sums (the same kernel with one iteration and no step) and
+`gn_step` one step from given sums, in place, with a 4-float status: the
+mesh runs those two around its all_reduce (`parallel/sharding.py`).
+
+The JAX package compiles this loop into one jitted `lax.while_loop`
+(`gradient_sdf_tpu/models/tracker.py:201-233`); it has no TPU kernel. On
+the card it is the hand-written CUDA of `csrc/gn_track.cu` (see the note
+there: one thread-block cluster runs the loop, reducing through distributed
+shared memory): on a CUDA tensor each wrapper launches its kernel or
+raises; on a CPU tensor it takes its plain version, `gn_track_reference`,
 `gn_residual_reduce_reference` or `gn_step_reference`.
 
 The plain residual pass computes what `models/tracker._residual_pass`
@@ -45,21 +52,24 @@ from .. import voxel_grid as vg
 # the 29 sums: E, g (6), H's upper triangle (21, row-major), count
 SUMS = 29
 TRIU = [(a, b) for a in range(6) for b in range(a, 6)]
+# gn_track's status: small, bad (1.0 or 0.0), E and count of the last
+# iteration, iterations run
+STATUS = 5
 MODES = {"grad": 0, "trilinear": 1}
 INT32_LIMIT = 2**31
 
-# kernel launches since the last reset_launch_count(): `launch_count` of
-# gn_residual_reduce, `step_launch_count` of gn_step; the CPU path and the
-# plain versions do not count
+# kernel launches since the last reset_launch_count(): `loop_launch_count`
+# of gn_track, `launch_count` of gn_residual_reduce (the one-pass launch),
+# `step_launch_count` of gn_step; the CPU path and the plain versions do
+# not count
+loop_launch_count = 0
 launch_count = 0
 step_launch_count = 0
-# per device: the residual kernel's per-CTA partials and its ticket (so
-# launches on one device go on one stream at a time, as the port's do)
-_scratch = {}
 
 
 def reset_launch_count():
-    global launch_count, step_launch_count
+    global loop_launch_count, launch_count, step_launch_count
+    loop_launch_count = 0
     launch_count = 0
     step_launch_count = 0
 
@@ -215,9 +225,32 @@ def gn_step_reference(sums, R, t, damping: float, conv_sq: float):
     return gn_update(H, g, R, t, damping, conv_sq)
 
 
+def gn_track_reference(pts, R, t, grid: vg.VoxelGrid, gcfg: GridConfig,
+                       fcfg: FusionConfig, *, mode: str = "grad",
+                       num_iterations: int, damping: float, conv_sq: float):
+    """Plain version of `gn_track`: the loop over
+    `gn_residual_reduce_reference` and `gn_step_reference`, stopping after
+    the iteration whose step is small. Returns (R', t', status f32 [5])."""
+    small = bad = torch.zeros((), dtype=torch.bool, device=pts.device)
+    sums = torch.zeros(SUMS, dtype=torch.float32, device=pts.device)
+    k = 0
+    while k < num_iterations:
+        sums = gn_residual_reduce_reference(pts, R, t, grid, gcfg, fcfg,
+                                            mode=mode)
+        R, t, small, bad = gn_step_reference(sums, R, t, damping, conv_sq)
+        k += 1
+        if bool(small):
+            break
+    status = torch.stack([small.float(), bad.float(), sums[0], sums[SUMS - 1],
+                          torch.tensor(float(k), device=pts.device)])
+    return R, t, status
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
+
+
 
 
 def _check_f32(name, a, shape, dev):
@@ -227,63 +260,115 @@ def _check_f32(name, a, shape, dev):
                          f"{dev}, got {a.dtype} {tuple(a.shape)} on {a.device}")
 
 
-def gn_residual_reduce(pts, R, t, grid: vg.VoxelGrid, gcfg: GridConfig,
-                       fcfg: FusionConfig, *, mode: str = "grad",
-                       slot_lo: int = 0, slot_hi=None) -> torch.Tensor:
-    """The 29 sums of one residual pass (module note) over the points `pts`
-    (f32 [N, 3], camera frame) at the pose (R f32 [3, 3], t f32 [3]), which
-    stay on the device: f32 [29] on the points' device. On CUDA the kernel
-    launches on the current stream without synchronizing; the scalars go to
-    it rounded to float32, as PyTorch rounds a Python number that meets a
-    float32 tensor."""
+def _check_pass(pts, R, t, grid, gcfg, mode, slot_lo, slot_hi):
+    """Checks what a residual pass takes; returns (slot_lo, slot_hi)."""
     if mode not in MODES:
         raise ValueError(f"unknown tracking mode {mode!r}")
     dev = pts.device
     slot_lo, slot_hi = _window(grid, slot_lo, slot_hi)
     vpb = gcfg.voxels_per_block
-    fields = (grid.dist, grid.weight, grid.grad_x, grid.grad_y, grid.grad_z)
     _check_f32("pts", pts, (pts.shape[0], 3), dev)
     _check_f32("R", R, (3, 3), dev)
     _check_f32("t", t, (3,), dev)
-    for f in fields:
+    for f in (grid.dist, grid.weight, grid.grad_x, grid.grad_y, grid.grad_z):
         _check_f32("a field", f, (slot_hi - slot_lo, vpb), dev)
     if (grid.directory.dtype != torch.int32 or grid.directory.device != dev
             or grid.directory.numel() != gcfg.dir_dim**3):
         raise ValueError("directory must be int32 [dir_dim^3] on the points' "
                          "device")
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"gn_track: no kernel for {dev}")
+    # keys and field indices are int32 in the kernel
+    if dev.type == "cuda" and (
+            gcfg.dir_dim**3 >= INT32_LIMIT or slot_hi * vpb >= INT32_LIMIT
+            or not 0 <= slot_lo <= slot_hi):
+        raise ValueError(f"directory {gcfg.dir_dim}^3 or slots [{slot_lo}, "
+                         f"{slot_hi}) x {vpb} voxels do not fit int32")
+    return slot_lo, slot_hi
+
+
+def launch_loop(lib, pts, R, t, grid, gcfg, fcfg, *, mode, slot_lo,
+                slot_hi, num_iterations, do_step, damping, conv_sq, status,
+                sums):
+    """One launch of `gsdf_gn_track_loop_f32` from `lib` (the package's
+    library, or a build of another cluster shape), on the current stream,
+    without checks or counting; raises if the launch fails. The scalars go
+    to it rounded to float32, as PyTorch rounds a Python number that meets
+    a float32 tensor."""
+    dev = pts.device
+    fields = (grid.dist, grid.weight, grid.grad_x, grid.grad_y, grid.grad_z)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gsdf_gn_track_loop_f32(
+            pts.data_ptr(), pts.shape[0], R.data_ptr(), t.data_ptr(),
+            grid.directory.data_ptr(), *(f.data_ptr() for f in fields),
+            None if status is None else status.data_ptr(),
+            None if sums is None else sums.data_ptr(), MODES[mode],
+            gcfg.dir_dim, gcfg.block_shape, slot_lo, slot_hi, num_iterations,
+            int(do_step), gcfg.voxel_size, fcfg.grad_scale, damping, conv_sq,
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"gn_track kernel launch failed: CUDA error {rc} (the cluster "
+            f"shape is checked at first use: an error there means the card "
+            f"cannot place it)")
+
+
+def gn_track(pts, R, t, grid: vg.VoxelGrid, gcfg: GridConfig,
+             fcfg: FusionConfig, *, mode: str = "grad", num_iterations: int,
+             damping: float, conv_sq: float) -> torch.Tensor:
+    """A frame's GN loop (module note) over the points `pts` (f32 [N, 3],
+    camera frame) from the pose (R f32 [3, 3], t f32 [3]), which is updated
+    in place. Returns the status, f32 [5] on the points' device: small,
+    bad, E, count, iterations. On CUDA the kernel launches on the current
+    stream without synchronizing."""
+    if num_iterations < 1:
+        raise ValueError(f"num_iterations must be >= 1, got {num_iterations}")
+    slot_lo, slot_hi = _check_pass(pts, R, t, grid, gcfg, mode, 0, None)
+    dev = pts.device
+    if dev.type == "cpu":
+        Rn, tn, status = gn_track_reference(
+            pts, R, t, grid, gcfg, fcfg, mode=mode,
+            num_iterations=num_iterations, damping=damping, conv_sq=conv_sq)
+        R.copy_(Rn)
+        t.copy_(tn)
+        return status
+    from . import _build
+
+    status = torch.empty(STATUS, dtype=torch.float32, device=dev)
+    launch_loop(_build.load(), pts, R, t, grid, gcfg, fcfg, mode=mode,
+                slot_lo=slot_lo, slot_hi=slot_hi,
+                num_iterations=num_iterations, do_step=True, damping=damping,
+                conv_sq=conv_sq, status=status, sums=None)
+    global loop_launch_count
+    loop_launch_count += 1
+    return status
+
+
+def gn_residual_reduce(pts, R, t, grid: vg.VoxelGrid, gcfg: GridConfig,
+                       fcfg: FusionConfig, *, mode: str = "grad",
+                       slot_lo: int = 0, slot_hi=None) -> torch.Tensor:
+    """The 29 sums of one residual pass (module note) over the points `pts`
+    (f32 [N, 3], camera frame) at the pose (R f32 [3, 3], t f32 [3]), which
+    stay on the device: f32 [29] on the points' device. On CUDA it is
+    `gn_track`'s kernel launched for one iteration without a step (the same
+    threads, points and order of sums as each iteration of the loop), on
+    the current stream without synchronizing."""
+    slot_lo, slot_hi = _check_pass(pts, R, t, grid, gcfg, mode, slot_lo,
+                                   slot_hi)
+    dev = pts.device
     if dev.type == "cpu":
         return gn_residual_reduce_reference(
             pts, R, t, grid, gcfg, fcfg, mode=mode, slot_lo=slot_lo,
             slot_hi=slot_hi)
-    if dev.type != "cuda":
-        raise RuntimeError(f"gn_residual_reduce: no kernel for {dev}")
-    # keys and field indices are int32 in the kernel
-    if (gcfg.dir_dim**3 >= INT32_LIMIT or slot_hi * vpb >= INT32_LIMIT
-            or not 0 <= slot_lo <= slot_hi):
-        raise ValueError(f"directory {gcfg.dir_dim}^3 or slots [{slot_lo}, "
-                         f"{slot_hi}) x {vpb} voxels do not fit int32")
     from . import _build
 
-    lib = _build.load()
+    sums = torch.empty(SUMS, dtype=torch.float32, device=dev)
+    launch_loop(_build.load(), pts, R, t, grid, gcfg, fcfg, mode=mode,
+                slot_lo=slot_lo, slot_hi=slot_hi, num_iterations=1,
+                do_step=False, damping=0.0, conv_sq=0.0, status=None,
+                sums=sums)
     global launch_count
-    with torch.cuda.device(dev):
-        if dev not in _scratch:
-            _scratch[dev] = (
-                torch.empty(lib.gsdf_gn_ctas() * SUMS, dtype=torch.float32,
-                            device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev))
-        partials, ticket = _scratch[dev]
-        sums = torch.empty(SUMS, dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gsdf_gn_residual_reduce_f32(
-            pts.data_ptr(), pts.shape[0], R.data_ptr(), t.data_ptr(),
-            grid.directory.data_ptr(), *(f.data_ptr() for f in fields),
-            partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
-            MODES[mode], gcfg.dir_dim, gcfg.block_shape, slot_lo, slot_hi,
-            gcfg.voxel_size, fcfg.grad_scale, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"gn_residual_reduce kernel launch failed: CUDA error {rc}")
     launch_count += 1
     return sums
 
@@ -318,3 +403,18 @@ def gn_step(sums, R, t, status, *, damping: float, conv_sq: float):
     if rc != 0:
         raise RuntimeError(f"gn_step kernel launch failed: CUDA error {rc}")
     step_launch_count += 1
+
+
+def cluster_shape(mode: str = "grad") -> tuple:
+    """(CTAs, threads a CTA, clusters the card holds at once) of
+    `gn_track`'s launch; raises if the card cannot place one."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_int * 3)()
+    rc = _build.load().gsdf_gn_cluster_shape(MODES[mode], out)
+    if rc != 0:
+        raise RuntimeError(f"gn_track's cluster cannot be placed: CUDA error "
+                           f"{rc} ({list(out)})")
+    return tuple(out)

@@ -102,7 +102,7 @@ def test_scan3d_devices_matches_jax_app(qvga_dir, tmp_path):
     # the CPU runs the kernels' plain versions, which count no launch
     assert m["mesh"]["kernel_launches"] == {
         "merge_clear": 0, "raycast_march": 0, "scatter_add": 0,
-        "gn_residual_reduce": 0, "gn_step": 0}
+        "gn_track_loop": 0, "gn_residual_reduce": 0, "gn_step": 0}
     # per frame: the touched-block vector and the compact sums, plus one
     # all_reduce per GN iteration of a tracked frame
     for e in m["frame_log"]:

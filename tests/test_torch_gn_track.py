@@ -8,10 +8,12 @@ mode with and without packed rows, trilinear mode, and a slot window that
 keeps half of the blocks, against a JAX pass over a grid whose other blocks
 are emptied); `gn_step_reference` to the body of the JAX loop
 (tracker.py:213-222, written out below with the JAX functions) on crafted
-systems; `tracker.gn_loop`, the kernels' loop, driven here by the plain
-versions, to the JAX tracker and to the port's plain loop. The CUDA kernels
-themselves have no CPU mode: the `gpu`-marked test holds them to these plain
-versions on a card.
+systems; `gn_track_reference`, the plain version of the loop kernel, to the
+JAX `track_frame` (perturbed start, no map, NaN steps; grad and trilinear)
+and to the plain pass and step run by hand; `tracker.gn_loop`, the mesh's
+loop, driven here by the plain versions, to the JAX tracker and to the
+port's plain loop. The CUDA kernels themselves have no CPU mode: the
+`gpu`-marked test holds them to these plain versions on a card.
 
 Tolerances, with their reasons:
   * residual sums: count exact; E rtol 1e-4, g and H rtol 1e-4 plus atol
@@ -20,7 +22,10 @@ Tolerances, with their reasons:
   * one GN step: 2e-6 on R and t (a well-conditioned 6x6 float32 LU in
     another order moves the step by a few ulps); the flags and the
     non-finite cases exactly;
-  * tracked poses: 1e-5, test_torch_tracker.py's POSE_TOL.
+  * tracked poses: 1e-5, test_torch_tracker.py's POSE_TOL; the energy of
+    the last iteration rtol 1e-3 (test_torch_tracker.py's bound: a point
+    within ~1e-6 of a voxel's rounding boundary may land in the
+    neighbouring voxel).
 """
 
 import numpy as np
@@ -35,7 +40,13 @@ from gradient_sdf_tpu_torch.models import tracker as ttr
 from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
 from gradient_sdf_tpu_torch.tools import track_bench
 
-from test_torch_tracker import CASES, FCFG, GCFG, K, POSE_TOL, _perturbed, setup  # noqa: F401
+from gradient_sdf_tpu.config import GridConfig
+from gradient_sdf_tpu.ops import voxel_grid as jvg
+from gradient_sdf_tpu_torch.ops import voxel_grid as tvg
+from gradient_sdf_tpu_torch.utils import interop
+
+from test_torch_tracker import (CASES, FCFG, GCFG, K, POSE_TOL, TCFG,  # noqa: F401
+                                _perturbed, setup)
 
 STEP_TOL = track_bench.STEP_TOL
 CONV_SQ = track_bench.CONV_SQ_CRAFTED
@@ -243,6 +254,94 @@ def test_gn_loop_matches_jax_tracker(setup):
     np.testing.assert_allclose(got.t.numpy(), np.asarray(rj.t), atol=POSE_TOL)
 
 
+def _loop_case(setup, case):
+    """(JAX grid, port grid, depth, R0, t0, tracker config, grid config) of
+    a `gn_track` case: 'perturbed' (test_torch_tracker.py's case), 'no_map'
+    (an empty map: no residuals, a zero step) and 'nan_step' (every
+    distance NaN: every step NaN and skipped, to the iteration cap)."""
+    _, poses, jgrid, tgrid, depths = setup
+    if case == "perturbed":
+        idx, _, tcfg, _ = CASES["perturbed"]
+        return (jgrid, tgrid, depths[idx], *_perturbed(*poses[idx]), tcfg,
+                GCFG)
+    R0, t0 = (np.asarray(a, np.float32) for a in poses[4])
+    if case == "no_map":
+        empty = GridConfig(num_blocks=64)
+        return (jvg.create(empty), tvg.create(empty, "cpu"), depths[4], R0,
+                t0, TCFG, empty)
+    bad = {k: np.array(v) for k, v in jgrid._asdict().items()}
+    bad["dist"][:] = np.nan
+    return (type(jgrid)(**{k: jnp.asarray(v) for k, v in bad.items()}),
+            interop.grid_from_numpy(bad), depths[4], R0, t0, TCFG, GCFG)
+
+
+@pytest.mark.parametrize("mode", ["grad", "trilinear"])
+@pytest.mark.parametrize("case", ["perturbed", "no_map", "nan_step"])
+def test_gn_track_matches_jax_track_frame(setup, case, mode):
+    """The loop kernel's plain version (`gn_track` on CPU tensors) against
+    the JAX `track_frame`: converged, iterations, count, E and the pose; it
+    updates R and t in place and launches nothing."""
+    jgrid, tgrid, d, R0, t0, tcfg, gcfg = _loop_case(setup, case)
+    rj = jtr.track_frame(jgrid, jnp.asarray(d), jnp.asarray(K), jnp.asarray(R0),
+                         jnp.asarray(t0), gcfg, FCFG, tcfg, mode=mode)
+    pts = _points(d)
+    R, t = torch.from_numpy(R0.copy()), torch.from_numpy(t0.copy())
+    gt.reset_launch_count()
+    status = gt.gn_track(pts, R, t, tgrid, gcfg, FCFG, mode=mode,
+                         num_iterations=tcfg.num_iterations,
+                         damping=tcfg.damping,
+                         conv_sq=tcfg.conv_threshold ** 2)
+    small, bad, E, cnt, iters = status.tolist()
+    assert status.shape == (gt.STATUS,) and status.dtype == torch.float32
+    assert (small != 0.0) == bool(rj.converged)
+    assert int(iters) == int(rj.num_iters)
+    assert int(cnt) == int(rj.num_valid)
+    np.testing.assert_allclose(E, float(rj.energy), rtol=1e-3)
+    np.testing.assert_allclose(R.numpy(), np.asarray(rj.R), atol=POSE_TOL)
+    np.testing.assert_allclose(t.numpy(), np.asarray(rj.t), atol=POSE_TOL)
+    expect = {"perturbed": (True, False, 4, 250),
+              "no_map": (True, False, 1, 0),
+              "nan_step": (False, True, TCFG.num_iterations, 250)}[case]
+    assert (small != 0.0, bad != 0.0) == expect[:2]
+    assert int(iters) <= expect[2]
+    assert int(cnt) > expect[3] if expect[3] else int(cnt) == 0
+    if case == "nan_step":
+        assert int(iters) == TCFG.num_iterations and np.isnan(E)
+        np.testing.assert_array_equal(R.numpy(), R0)
+        np.testing.assert_array_equal(t.numpy(), t0)
+    assert gt.loop_launch_count == gt.launch_count == gt.step_launch_count == 0
+
+
+@pytest.mark.parametrize("mode", ["grad", "trilinear"])
+def test_gn_track_status_is_the_plain_pass_and_step(setup, mode):
+    """`gn_track_reference`'s pose and status [small, bad, E, count,
+    iterations] are those of `gn_residual_reduce_reference` and
+    `gn_step_reference` run by hand until a step is small, bit for bit; a
+    cap of one iteration gives the first step."""
+    _, tgrid, d, R0, t0, tcfg, gcfg = _loop_case(setup, "perturbed")
+    pts = _points(d)
+    conv_sq = tcfg.conv_threshold ** 2
+    R, t = torch.from_numpy(R0), torch.from_numpy(t0)
+    rows = []
+    for _ in range(tcfg.num_iterations):
+        sums = gt.gn_residual_reduce_reference(pts, R, t, tgrid, gcfg, FCFG,
+                                               mode=mode)
+        R, t, small, bad = gt.gn_step_reference(sums, R, t, tcfg.damping,
+                                                conv_sq)
+        rows.append((R, t, [float(small), float(bad), float(sums[0]),
+                            float(sums[-1]), float(len(rows) + 1)]))
+        if bool(small):
+            break
+    assert 2 <= len(rows) <= 4
+    for cap, (Rw, tw, sw) in ((tcfg.num_iterations, rows[-1]), (1, rows[0])):
+        Rg, tg, status = gt.gn_track_reference(
+            pts, torch.from_numpy(R0), torch.from_numpy(t0), tgrid, gcfg, FCFG,
+            mode=mode, num_iterations=cap, damping=tcfg.damping,
+            conv_sq=conv_sq)
+        assert status.tolist() == sw
+        assert torch.equal(Rg, Rw) and torch.equal(tg, tw)
+
+
 def test_wrappers_check_their_inputs(setup):
     tgrid = setup[3]
     pts = torch.zeros((10, 3))
@@ -264,13 +363,39 @@ def test_wrappers_check_their_inputs(setup):
     assert status.tolist() == [1.0, 0.0, 0.0, 0.0]
 
 
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "iterations",
+                                 "mode"])
+def test_gn_track_checks_its_inputs(setup, bad):
+    """`gn_track` raises on points, pose or grid of another type, shape or
+    device, on fewer than one iteration and on an unknown mode."""
+    tgrid = setup[3]
+    pts, R, t = torch.zeros((10, 3)), torch.eye(3), torch.zeros(3)
+    kw = dict(mode="grad", num_iterations=3, damping=1.0, conv_sq=CONV_SQ)
+    if bad == "dtype":
+        pts, match = pts.double(), "pts"
+    elif bad == "shape":
+        R, match = torch.eye(4)[:3].contiguous(), "R"
+    elif bad == "device":
+        t, match = torch.zeros(3, device="meta"), "t"
+    elif bad == "iterations":
+        kw["num_iterations"], match = 0, "num_iterations"
+    else:
+        kw["mode"], match = "nearest", "unknown tracking mode"
+    with pytest.raises(ValueError, match=match):
+        gt.gn_track(pts, R, t, tgrid, GCFG, FCFG, **kw)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["grad", "trilinear"])
 def test_cuda_gn_kernels_match_plain(setup, mode):
-    """On a card: the residual kernel's count equals the plain version's
+    """On a card: the one-pass launch's count equals the plain version's
     and its sums agree within float32 summation error; two runs give the
     same bits; the step kernel matches the plain step on the crafted
-    systems; `track_frame` on a CUDA map is two launches per iteration."""
+    systems; the loop kernel's first iteration is the one-pass launch's sums
+    and the step kernel's pose, bit for bit, its full run the chain of its
+    single-iteration runs (and a second full run) bit for bit, and the plain
+    loop's iterations and pose within POSE_TOL; `track_frame` on a CUDA map
+    is one launch of the loop kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     _, poses, _, tgrid, depths = setup
@@ -295,8 +420,44 @@ def test_cuda_gn_kernels_match_plain(setup, mode):
         assert status[:2].tolist() == [float(small), float(bad)], name
         assert float((R - Rp).abs().max()) <= STEP_TOL, name
         assert float((t - tp).abs().max()) <= STEP_TOL, name
+    tcfg = TrackerConfig(conv_threshold=5e-3)
+    kw = dict(mode=mode, damping=tcfg.damping, conv_sq=tcfg.conv_threshold ** 2)
+    R1, t1 = R0.clone(), t0.clone()
+    one = gt.gn_track(pts, R1, t1, cg, GCFG, FCFG, num_iterations=1, **kw)
+    Rs, ts = R0.clone(), t0.clone()
+    status = torch.zeros(4, device="cuda")
+    gt.gn_step(a, Rs, ts, status, damping=kw["damping"], conv_sq=kw["conv_sq"])
+    assert one.tolist()[:4] == status.tolist() and one.tolist()[4] == 1.0
+    assert torch.equal(R1, Rs) and torch.equal(t1, ts)
+    R, t = R0.clone(), t0.clone()
+    for k in range(tcfg.num_iterations):
+        step = gt.gn_track(pts, R, t, cg, GCFG, FCFG, num_iterations=1, **kw)
+        if step[0] != 0.0:
+            break
+    full = []
+    for _ in range(2):
+        Rf, tf = R0.clone(), t0.clone()
+        full.append((gt.gn_track(pts, Rf, tf, cg, GCFG, FCFG,
+                                 num_iterations=tcfg.num_iterations, **kw),
+                     Rf, tf))
+    for st, Rf, tf in full:
+        assert st.tolist() == step.tolist()[:4] + [float(k + 1)]
+        assert torch.equal(Rf, R) and torch.equal(tf, t)
+    Rp, tp, sp = gt.gn_track_reference(pts, R0, t0, cg, GCFG, FCFG,
+                                       num_iterations=tcfg.num_iterations, **kw)
+    assert sp.tolist()[4] == full[0][0].tolist()[4] <= 4
+    assert float((Rp - R).abs().max()) <= POSE_TOL
+    assert float((tp - t).abs().max()) <= POSE_TOL
+    # track_frame compacts the points on the card (its backprojection
+    # rounds otherwise than the CPU's): the loop kernel on those points
+    depth = torch.from_numpy(depths[4]).cuda()
+    Rc, tc = R0.clone(), t0.clone()
+    st = gt.gn_track(ttr.compact_points(depth, K, FCFG, tcfg), Rc, tc, cg, GCFG,
+                     FCFG, num_iterations=tcfg.num_iterations, **kw).tolist()
     gt.reset_launch_count()
-    res = ttr.track_frame(cg, torch.from_numpy(depths[4]).cuda(), K, R0, t0,
-                          GCFG, FCFG, TrackerConfig(conv_threshold=5e-3),
-                          mode=mode)
-    assert gt.launch_count == gt.step_launch_count == res.num_iters
+    res = ttr.track_frame(cg, depth, K, R0, t0, GCFG, FCFG, tcfg, mode=mode)
+    assert gt.loop_launch_count == 1 <= res.num_iters
+    assert gt.launch_count == gt.step_launch_count == 0
+    assert torch.equal(res.R, Rc) and torch.equal(res.t, tc)
+    assert [res.converged, res.num_iters, res.energy, res.num_valid] == [
+        st[0] != 0.0, int(st[4]), st[2], int(st[3])]
