@@ -5,7 +5,10 @@
 
 Builds the port's CUDA kernels from this checkout, checks each against its
 plain PyTorch version on the card, checks card fusion against the port on
-the CPU, then drives the Scan3D main path through its CLI entry point on
+the CPU, holds fusion's two-launch kernel (`csrc/fuse_integrate.cu`) to its
+plain passes frame by frame on the golden protocol, the box world and every
+fusion option, and counts a fused frame's launches and host syncs (phase
+3b), then drives the Scan3D main path through its CLI entry point on
 the golden protocol (640x480 spheres, seed 2, 6 frames over a 4 degree
 arc, 2 cm voxels, app-default 16384-block grid) in tracking and in GT-pose
 mode, and checks what comes out. Then the second executable: PhotoBA
@@ -45,7 +48,9 @@ checkout.
 Output: one line of numbers per phase; then the card's name and power
 limit (`nvidia-smi`), a JSON line `{"kernels": [...]}` with each kernel's
 launch count on the main paths (each counted from zero, and named in
-`launches_counted_in`), its largest error against the plain version, its
+`launches_counted_in`; one card's fusion launches the two `fuse_integrate`
+passes, the mesh's the scatter kernel and `merge_clear`), its largest error
+against the plain version, its
 time beside the plain version's, the bound and (for the scatter and its
 F = 1 launch, `scatter_add_rows`) the bare `index_add_` as the library
 yardstick, on golden frame 5's real samples and, for the march, on the
@@ -168,7 +173,9 @@ def phase_build():
     lib = _build.load()
     for name in ("gsdf_scatter_add_f32", "gsdf_merge_clear_f32",
                  "gsdf_raycast_march_f32", "gsdf_gn_track_loop_f32",
-                 "gsdf_gn_step_f32", "gsdf_gn_cluster_shape"):
+                 "gsdf_gn_step_f32", "gsdf_gn_cluster_shape",
+                 "gsdf_fuse_claim_f32", "gsdf_fuse_integrate_f32",
+                 "gsdf_fuse_integrate_shape"):
         getattr(lib, name)   # AttributeError if the library lacks a kernel
     ptxas = [l.strip() for l in _build.build_log.splitlines() if "ptxas" in l
              or "spill" in l]
@@ -530,6 +537,115 @@ def phase_fusion():
         f"{ms['cuda']:.1f} cpu {ms['cpu']:.1f}")
 
 
+def phase_fuse_integrate(smi):
+    """Phase 3b: fusion's kernel (`csrc/fuse_integrate.cu`: a claim pass
+    and one cooperative integrate-and-merge launch a frame) against its
+    plain versions on the card, frame by frame (`fusion_bench.kernel_vs_twin`:
+    claims, slot ids, directory, coarse occupancy, block coordinates, block
+    count, overflow, oob and visibility words bit for bit, fields within
+    FUSE_TOL, accumulator and marks zero) on golden frames 0-5, the box
+    world at 1 cm and every FusionConfig option the walk honours; then its
+    times on golden frame 5 beside its bound, its plain versions and its
+    launch floor, and a fused frame's launches and host syncs."""
+    import dataclasses
+
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+    from gradient_sdf_tpu_torch.tools import fusion_bench as fb
+
+    dev = torch.device("cuda")
+    K = synth.KINECT_K
+    cfg, depths, poses = fb.golden_protocol()
+    bcfg, bdepths, bposes = fb.box_protocol()
+
+    def fusion_cfg(**kw):
+        return dataclasses.replace(cfg, fusion=dataclasses.replace(cfg.fusion, **kw))
+
+    def grid_cfg(**kw):
+        return dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid, **kw))
+
+    few = (depths[:3], poses[:3])
+    cases = [("golden frames 0-5", cfg, depths, poses, {}),
+             ("box world frames 0-5 at 1 cm", bcfg, bdepths, bposes, {}),
+             ("keyframe slot 33", cfg, *few, {"kf_slot": 33}),
+             ("fusion_stride 2", fusion_cfg(fusion_stride=2), *few, {}),
+             ("cosine_correction", fusion_cfg(cosine_correction=True), *few, {}),
+             ("no gradients", cfg, *few, {"accumulate_gradients": False}),
+             ("median blur", fusion_cfg(median_blur_depth=True), *few, {}),
+             ("64-block capacity", grid_cfg(num_blocks=64), *few, {}),
+             ("dir_dim 8", grid_cfg(dir_dim=8), *few, {})]
+    err = {"weight": 0.0, "dist": 0.0, "grad": 0.0}
+    for name, c, d, p, kw in cases:
+        r = fb.kernel_vs_twin(c, d, p, K, dev, FUSE_TOL, **kw)
+        if name == "64-block capacity" and not r["overflow"]:
+            raise AssertionError(f"{name}: {r['blocks']} blocks, no overflow")
+        if name == "dir_dim 8" and r["oob"] <= 0:
+            raise AssertionError(f"{name}: no sample outside the directory")
+        for k in err:
+            err[k] = max(err[k], r[k])
+        vis = "keyframe words, " if "kf_slot" in kw else ""
+        log(f"  phase3b {name}: {r['frames']} frames, {r['misses']} missing "
+            f"samples claimed, {r['oob']} oob, {r['blocks']} blocks; claims, "
+            f"slots, directory, coarse_occ, {vis}overflow, oob equal; max "
+            f"|err| weight {r['weight']:.3g} dist {r['dist']:.3g} grad "
+            f"{r['grad']:.3g}")
+
+    def golden_map(n):
+        m = GradSdfMap(cfg, device=dev)
+        for i in range(n):
+            m.update(depths[i], K, poses[i])
+        return m
+
+    d5 = torch.as_tensor(depths[5], device=dev)
+    R5, t5 = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in poses[5])
+    tm = fb.fuse_kernel_times(golden_map(5), d5, R5, t5)
+    b = tm["bounds"]
+    # a fused frame's launches and syncs: frame 5 opens blocks, the same
+    # frame fused again opens none
+    m = golden_map(5)
+    before = int(m.grid.num_active)
+    grew = fb.count_fuse_frame(m, d5, R5, t5)
+    opened = int(m.grid.num_active) - before
+    again = fb.count_fuse_frame(m, d5, R5, t5)
+    if int(m.grid.num_active) != before + opened:
+        raise AssertionError("fusing a frame again opened blocks")
+    for c, want_insert in ((grew, opened > 0), (again, False)):
+        if not (c["claim"] == c["integrate"] == 1
+                and c["scatter_add"] == c["merge_clear"] == 0
+                and c["status_syncs"] == 1 and c["other_syncs"] == 0
+                and (c["insert_syncs"] > 0) == want_insert):
+            raise AssertionError(f"fused frame: {c}, {opened} blocks opened")
+    log(f"phase3b times, golden frame 5 ({tm['misses']} missing samples, "
+        f"{b['sectors']} directory sectors, {b['rows']} touched rows in "
+        f"{b['blocks']} blocks; integrate grid {tm['shape'][0]} x "
+        f"{tm['shape'][1]} CTAs of {tm['shape'][2]}) [{smi}]: claim "
+        f"{tm['claim_ms']:.4f} ms (bound {b['claim'][0]:.5f}, {b['claim'][1]}; "
+        f"plain {tm['claim_plain_ms']:.4f}), integrate + merge "
+        f"{tm['integrate_ms']:.4f} ms (bound {b['integrate'][0]:.5f}, "
+        f"{b['integrate'][1]}; plain {tm['integrate_plain_ms']:.4f}; empty "
+        f"cooperative launch {tm['coop_empty_ms']:.4f})")
+    log(f"phase3b a fused frame: {grew['claim']} claim + {grew['integrate']} "
+        f"integrate launches, scatter_add {grew['scatter_add']}, merge_clear "
+        f"{grew['merge_clear']}; {grew['device_ops']} device ops and "
+        f"{grew['status_syncs']} + {grew['insert_syncs']} host syncs (status "
+        f"read + insert_new) opening {opened} blocks; {again['device_ops']} "
+        f"device ops and {again['status_syncs']} + {again['insert_syncs']} "
+        f"host syncs opening none")
+    stats = {"claim": {"max_abs_err": 0.0, "ms": tm["claim_ms"],
+                       "plain_ms": tm["claim_plain_ms"],
+                       "bound_ms": b["claim"][0], "bound_by": b["claim"][1],
+                       "library_ms": None},
+             "integrate": {"max_abs_err": max(err.values()),
+                           "ms": tm["integrate_ms"],
+                           "plain_ms": tm["integrate_plain_ms"],
+                           "bound_ms": b["integrate"][0],
+                           "bound_by": b["integrate"][1], "library_ms": None,
+                           "empty_launch_ms": tm["coop_empty_ms"]}}
+    return stats
+
+
 def rel_translation_errors(results, data):
     """Per-frame |t_rel(est) - t_rel(gt)| with t_rel = position of frame i
     in frame 0's camera (frame 0 anchors the estimate at identity)."""
@@ -559,13 +675,14 @@ def run_app(data, results, extra, data_type="synth", voxel_size="0.02"):
 
 
 def kernel_modules():
+    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
     from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
     from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
     from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
     from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
 
     return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm,
-            "gn_residual_reduce": gt}
+            "gn_residual_reduce": gt, "fuse_integrate": fi}
 
 
 def reset_launch_counts():
@@ -579,14 +696,34 @@ def launch_counts():
     gt = kernel_modules()["gn_residual_reduce"]
     counts["gn_step"] = gt.step_launch_count
     counts["gn_track_loop"] = gt.loop_launch_count
+    counts["fuse_claim"] = kernel_modules()["fuse_integrate"].claim_launch_count
     return counts
 
 
-FUSION_KERNELS = ("scatter_add", "merge_clear")
+# one card fuses a frame in the two launches of fuse_integrate.cu (claim
+# pass, integrate-and-merge pass) and launches neither the scatter kernel
+# nor merge_clear; each rank of a mesh scatters and merges its shard with
+# those two and launches no fuse_integrate pass
+FUSION_KERNELS = ("fuse_claim", "fuse_integrate")
+MESH_FUSION_KERNELS = ("scatter_add", "merge_clear")
 # one card tracks a frame in one launch of the loop kernel; a mesh rank runs
 # the one-pass launch and the step kernel once per GN iteration
 TRACKED = FUSION_KERNELS + ("gn_track_loop",)
-MESH_TRACKED = FUSION_KERNELS + ("gn_residual_reduce", "gn_step")
+MESH_TRACKED = MESH_FUSION_KERNELS + ("gn_residual_reduce", "gn_step")
+
+
+def check_fusion_launches(launches, fused, ranks=1):
+    """One card: each fuse_integrate launch once per fused frame, the
+    scatter kernel and merge_clear never; a mesh of `ranks`: the scatter
+    kernel and merge_clear once per fused frame and rank, fuse_integrate
+    never."""
+    on, off = ((FUSION_KERNELS, MESH_FUSION_KERNELS) if ranks == 1
+               else (MESH_FUSION_KERNELS, FUSION_KERNELS))
+    if (fused <= 0 or any(launches[k] != ranks * fused for k in on)
+            or any(launches[k] != 0 for k in off)):
+        raise AssertionError(
+            f"kernel launches {launches} for {fused} fused frames on {ranks} "
+            f"rank(s): want {on} once per frame and rank, {off} never")
 
 
 def check_track_launches(m, launches, ranks=1):
@@ -618,9 +755,7 @@ def check_outputs(m, results, launches, n_frames, cloud=True):
         raise AssertionError(f"bad map state {m}")
     fused = sum(1 for e in m["frame_log"] if e["fuse_ms"] is not None)
     # the main path launches each fusion kernel exactly once per fused frame
-    if any(launches[k] != fused for k in FUSION_KERNELS):
-        raise AssertionError(f"kernel launches {launches} for {fused} fused "
-                             f"frames, want one each per frame")
+    check_fusion_launches(launches, fused)
     mesh = load_ply(os.path.join(results, "gradient_sdf_mesh_final.ply"))
     cloud_path = os.path.join(results, "gradient_sdf_cloud_final.ply")
     n_faces = len(mesh.get("face", []))
@@ -723,9 +858,7 @@ def check_photoba(m, results, launches):
     if not m["device"].startswith("cuda"):
         raise AssertionError(f"photoba ran on {m['device']}")
     fused = m["timers"]["Integrate depth data into Sdf"]["count"]
-    if fused <= 0 or any(launches[k] != fused for k in FUSION_KERNELS):
-        raise AssertionError(f"kernel launches {launches} for {fused} fused "
-                             f"frames, want one each per frame")
+    check_fusion_launches(launches, fused)
     mesh = load_ply(os.path.join(results, "coarse_BA_mesh_after_upsample.ply"))
     cloud = load_ply(os.path.join(results, "coarse_BA_cloud_after_upsample.ply"))
     if len(mesh["vertex"]) <= 100 or "red" not in mesh["vertex"].dtype.names:
@@ -1212,7 +1345,7 @@ def phase_ablation_and_resume(data, n_frames, straight, straight_err):
         raise AssertionError(f"base-sdf relative translation errors {errs}")
     track = [e["track_ms"] for e in m["frame_log"][1:]]
     log(f"phase10 scan3d --scan-type base-sdf: {m['frames']} frames, {fused} "
-        f"fused (scatter F=2, merge_clear without gradients), "
+        f"fused (the integrate pass with F=2, its merge without gradients), "
         f"{m['num_blocks_active']} blocks, {n_faces} faces, no cloud, kernel "
         f"launches {launches}, max rel. translation error {max(errs) * 1e3:.3f} "
         f"mm (grad-sdf in phase 4: {straight_err * 1e3:.3f} mm), track "
@@ -1237,14 +1370,14 @@ def phase_ablation_and_resume(data, n_frames, straight, straight_err):
     prof_dir = os.path.join(cut, "profile")
     done, m2 = cut_and_resume(data, cut, "none", ("--profile", prof_dir))
     # --profile: a Chrome trace of the resumed run's third frame, holding the
-    # card's kernels (the scatter kernel among them)
+    # card's kernels (fusion's integrate kernel among them)
     traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
     if m2["frames"] >= 3:
         if len(traces) != 1:
             raise AssertionError(f"--profile wrote {traces}")
         with open(os.path.join(prof_dir, traces[0])) as f:
             trace = f.read()
-        if '"cat": "kernel"' not in trace or "scatter_add" not in trace:
+        if '"cat": "kernel"' not in trace or "fuse_integrate" not in trace:
             raise AssertionError("the profile trace holds no device kernels")
     want_invalid = [i for i in straight["invalid_frames"] if i >= done]
     if m2["frames"] != n_frames - done or m2["invalid_frames"] != want_invalid:
@@ -1934,9 +2067,7 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
                              f"{frac} ({na} / {nb}), dist median {med} p99 {p99}")
     fused = sum(e["fuse_ms"] is not None for e in m["frame_log"])
     launches = mesh["kernel_launches"]
-    if any(launches[k] != MESH_RANKS * fused for k in FUSION_KERNELS):
-        raise AssertionError(f"mesh launches {launches} for {fused} fused "
-                             f"frames on {MESH_RANKS} ranks")
+    check_fusion_launches(launches, fused, ranks=MESH_RANKS)
     check_track_launches(m, launches, ranks=MESH_RANKS)
     log(f"phase15a scan3d --devices {MESH_RANKS} --block-parallel {MESH_BLOCKS} "
         f"vs phase 4: {m['frames']} frames, {fused} fused, invalid "
@@ -2215,6 +2346,7 @@ def main():
     kstats["rows"]["max_abs_err"] = max(kstats["rows"]["max_abs_err"],
                                         synth_rows_err)
     phase_fusion()
+    fstats = phase_fuse_integrate(smi)
 
     from gradient_sdf_tpu_torch.apps import make_synth
 
@@ -2278,6 +2410,28 @@ def main():
 
     log(smi_line())
     log(json.dumps({"kernels": [{
+        "name": "fuse_claim",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/fuse_integrate.cu",
+        "replaces": "gradient_sdf_tpu/ops/fusion.py:131",
+        "launches": counted_in("fuse_claim")[0],
+        "launches_counted_in": counted_in("fuse_claim")[1],
+        "timed_on": "phase 3b: golden frame 5 after frames 0-4 (the claim "
+                    "pass of one card's fusion: gates, walk, lookup)",
+        **fstats["claim"],
+    }, {
+        "name": "fuse_integrate",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/fuse_integrate.cu",
+        "replaces": "gradient_sdf_tpu/ops/pallas/scatter_add.py:103",
+        "also_replaces": "gradient_sdf_tpu/ops/fusion.py:330 and :362 (the "
+                         "scatter and merge of one card's fusion)",
+        "launches": counted_in("fuse_integrate")[0],
+        "launches_counted_in": counted_in("fuse_integrate")[1],
+        "timed_on": "phase 3b: golden frame 5 after frames 0-4 and its claim "
+                    "(one cooperative launch: walk, lookup, scatter, merge)",
+        **fstats["integrate"],
+    }, {
         "name": "scatter_add_multi",
         "route": "cuda",
         "source": "gradient_sdf_tpu_torch/csrc/scatter_add.cu",

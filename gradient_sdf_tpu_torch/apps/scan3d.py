@@ -171,9 +171,12 @@ def run_scan(args, *, check_replicated: bool = False) -> dict:
 
 
 def _launch_counts():
-    from ..ops.kernels import gn_track, merge_clear, raycast_march, scatter_add
+    from ..ops.kernels import (fuse_integrate, gn_track, merge_clear,
+                               raycast_march, scatter_add)
 
-    return {"scatter_add": scatter_add.launch_count,
+    return {"fuse_claim": fuse_integrate.claim_launch_count,
+            "fuse_integrate": fuse_integrate.launch_count,
+            "scatter_add": scatter_add.launch_count,
             "merge_clear": merge_clear.launch_count,
             "raycast_march": raycast_march.launch_count,
             "gn_track_loop": gn_track.loop_launch_count,

@@ -32,7 +32,9 @@
 //     shuffles into the group's lowest lane, which alone sends the
 //     reduction. The lanes are added in ascending lane order, so the sum
 //     inside a warp is the same in every run; only the order in which
-//     warps reach the L2 still varies.
+//     warps reach the L2 still varies. This device code lives in
+//     warp_scatter.cuh, which fusion's integrate pass (fuse_integrate.cu)
+//     shares.
 //   * Loads. The payload comes as F field pointers and one sample stride:
 //     (vals + f, F) for a row-major [N, F] array, (field_f, 1) for F
 //     separate [N] arrays. Fusion hands its five fields over separately,
@@ -48,53 +50,25 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_scatter.cuh"
+
 namespace {
 
 constexpr int kMaxFields = 5;
 constexpr int kVecRowStride = 8;   // floats: one 32-byte sector per row
-constexpr unsigned kFullMask = 0xffffffffu;
 
 struct FieldPtrs {
   const float* p[kMaxFields];
 };
-
-__device__ __forceinline__ void red_add_v4(float* a, float x, float y, float z,
-                                           float w) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
-               :: "l"(a), "f"(x), "f"(y), "f"(z), "f"(w) : "memory");
-}
-
-__device__ __forceinline__ void red_add_v2(float* a, float x, float y) {
-  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};"
-               :: "l"(a), "f"(x), "f"(y) : "memory");
-}
-
-// One row's reduction. VEC: the row starts on a 32-byte boundary.
-template <int F, bool VEC>
-__device__ __forceinline__ void reduce_row(float* o, const float (&x)[F]) {
-  if constexpr (!VEC || F == 1) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(o + f, x[f]);
-  } else if constexpr (F == 2) {
-    red_add_v2(o, x[0], x[1]);
-  } else if constexpr (F == 3) {
-    red_add_v2(o, x[0], x[1]);
-    atomicAdd(o + 2, x[2]);
-  } else {
-    red_add_v4(o, x[0], x[1], x[2], x[3]);
-    if constexpr (F == 5) atomicAdd(o + 4, x[4]);
-  }
-}
 
 template <int F, bool VEC>
 __global__ void __launch_bounds__(256)
 scatter_add_warp(const int32_t* __restrict__ idx, FieldPtrs v,
                  int64_t sample_stride, float* __restrict__ out,
                  int64_t row_stride, int64_t n, int64_t out_size) {
-  const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   // whole warps stay in the loop (block size and stride are multiples of
-  // 32), so every shuffle below has all 32 lanes
+  // 32), so every shuffle in warp_aggregate has all 32 lanes
   const int64_t n_up = (n + 31) & ~static_cast<int64_t>(31);
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < n_up; j += stride) {
@@ -106,24 +80,8 @@ scatter_add_warp(const int32_t* __restrict__ idx, FieldPtrs v,
     float x[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) x[f] = i >= 0 ? v.p[f][j * sample_stride] : 0.0f;
-
-    // lanes with the same destination; the lowest of them leads
-    const unsigned peers = __match_any_sync(kFullMask, i);
-    const int leader = __ffs(peers) - 1;
-    // the leader takes its peers' values one by one, lowest lane first
-    // (dropped lanes form a group too, which has nothing to sum)
-    unsigned rest = (lane == leader && i >= 0) ? peers & (peers - 1) : 0u;
-    while (__any_sync(kFullMask, rest != 0u)) {
-      const int src = rest ? __ffs(rest) - 1 : lane;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float y = __shfl_sync(kFullMask, x[f], src);
-        if (rest) x[f] += y;
-      }
-      rest &= rest - 1;
-    }
-    if (lane == leader && i >= 0)
-      reduce_row<F, VEC>(out + static_cast<int64_t>(i) * row_stride, x);
+    if (gsdf::warp_aggregate<F>(i, x))
+      gsdf::reduce_row<F, VEC>(out + static_cast<int64_t>(i) * row_stride, x);
   }
 }
 

@@ -25,6 +25,7 @@ import torch
 from ..config import PipelineConfig
 from ..ops import fusion, normals, query
 from ..ops import voxel_grid as vg
+from ..ops.kernels import fuse_integrate
 from ..utils import device as device_mod
 from ..utils.logging_util import get_logger
 from ..utils.ply import save_mesh_ply, save_point_cloud_ply
@@ -37,21 +38,28 @@ class GradSdfMap:
         # the card unless the caller names another device; raises without one
         self.device = device_mod.require(device)
         self.grid = vg.create(cfg.grid, self.device)
-        # fusion's frame accumulator: scratch that lives as long as the map,
-        # all-zero between frames (fuse_frame leaves it so); not saved state
-        self.acc = fusion.new_accumulator(self.grid)
+        # fusion's frame accumulator and its kernel's scratch (block marks,
+        # claim status, candidate buffer): they live as long as the map, the
+        # accumulator and the marks all-zero between frames (fuse_frame
+        # leaves them so); not saved state
+        self._new_scratch()
         self.counter = 0
         # capacity/world-range growth events, dumped by scan3d --metrics-json
         self.growth_events: list = []
         self.mesh = None  # set by attach_mesh for multi-device operation
         self.cache: Optional[normals.NormalEstimatorCache] = None
         kf_words = max(1, -(-cfg.photo_ba.max_recorded_keyframes // 32))
-        # uint32 bit patterns held in int32 (see fusion._merge_vis)
+        # uint32 bit patterns held in int32 (see fuse_integrate._kf_word_bit)
         self.vis = (
             torch.zeros((cfg.grid.num_blocks, cfg.grid.voxels_per_block,
                          kf_words), dtype=torch.int32, device=self.device)
             if with_vis else None
         )
+
+    def _new_scratch(self):
+        """The accumulator and the kernel's scratch, sized to the grid."""
+        self.acc = fusion.new_accumulator(self.grid)
+        self.scratch = fuse_integrate.new_scratch(self.grid)
 
     # -- multi-device -------------------------------------------------------
     def attach_mesh(self, mesh):
@@ -66,7 +74,7 @@ class GradSdfMap:
         self.mesh = mesh
         self.device = mesh.device
         self.grid = sharding.shard_grid(mesh, self.grid)
-        self.acc = fusion.new_accumulator(self.grid)
+        self._new_scratch()
         self.cache = None
 
     def full_grid(self):
@@ -126,17 +134,20 @@ class GradSdfMap:
         elif self.vis is not None:
             self.grid, self.vis = fusion.fuse_frame(
                 self.grid, depth, self.cache, R, t, gcfg, fcfg,
-                vis=self.vis, kf_slot=kf_slot, acc=self.acc)
+                vis=self.vis, kf_slot=kf_slot, acc=self.acc,
+                scratch=self.scratch)
         else:
             self.grid = fusion.fuse_frame(self.grid, depth, self.cache, R, t,
-                                          gcfg, fcfg, acc=self.acc)
+                                          gcfg, fcfg, acc=self.acc,
+                                          scratch=self.scratch)
 
     def restore(self, grid, grid_cfg=None, vis=None, counter: int = 0):
         """Take over a saved state (`utils/checkpoint.load_state`): the grid,
         its possibly grown geometry, the visibility words and the frame
         counter. Everything sized to the grid is rebuilt from the restored
-        geometry: the accumulator (scratch, never saved) would otherwise
-        keep the row count of the grid this map was created with."""
+        geometry: the accumulator and the kernel's scratch (never saved)
+        would otherwise keep the sizes of the grid this map was created
+        with."""
         self.grid = grid
         if grid_cfg is not None:
             self.cfg = dataclasses.replace(self.cfg, grid=grid_cfg)
@@ -145,7 +156,7 @@ class GradSdfMap:
             raise ValueError(
                 f"restored grid ({grid.num_blocks} blocks, directory of "
                 f"{grid.directory.numel()}) does not fit {self.cfg.grid}")
-        self.acc = fusion.new_accumulator(self.grid)
+        self._new_scratch()
         if vis is not None and self.vis is not None:
             self.vis = vis
         self.counter = counter
@@ -161,8 +172,9 @@ class GradSdfMap:
 
             self.grid = sharding.shard_grid(self.mesh, self.grid)
         self.cfg = dataclasses.replace(self.cfg, grid=new_gcfg)
-        # the accumulator is all-zero here, so growing it is a fresh one
-        self.acc = fusion.new_accumulator(self.grid)
+        # the accumulator and the marks are all-zero here, so growing them
+        # is a fresh pair
+        self._new_scratch()
         if self.vis is not None:
             pad = new_gcfg.num_blocks - old_blocks
             self.vis = torch.cat(
@@ -185,6 +197,7 @@ class GradSdfMap:
              "grew": grew})
         if grew:
             self.cfg = dataclasses.replace(self.cfg, grid=new_gcfg)
+        self.scratch = fuse_integrate.new_scratch(self.grid)
 
     # -- queries ------------------------------------------------------------
     def tsdf(self, points):

@@ -3,13 +3,13 @@
 Port of `gradient_sdf_tpu/models/pixel_sdf.py` (reference `MapPixelSdf`,
 `cpp/include/sdf_tracker/MapPixelSdf.{h,cpp}`): the gradient map's fusion
 gating and dist/weight updates but no stored gradient (fusion runs with
-`accumulate_gradients=False`: the scatter kernel takes F = 2 fields and
-`merge_clear` leaves the gradient fields alone); queries interpolate the 8
+`accumulate_gradients=False`: the integrate pass adds F = 2 fields and its
+merge leaves the gradient fields alone); queries interpolate the 8
 corners (`MapPixelSdf.cpp:43-111`). The update transform is the correct one
 (the reference's OMP variant), not the double-applied pose of
-`MapPixelSdf.cpp:160`. Growth, the persistent accumulator and the host
-exports are `GradSdfMap`'s; there is no point cloud export, and `save_sdf`
-writes the dist and weight files only.
+`MapPixelSdf.cpp:160`. Growth, the persistent accumulator and scratch, and
+the host exports are `GradSdfMap`'s; there is no point cloud export, and
+`save_sdf` writes the dist and weight files only.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ class PixelSdfMap(GradSdfMap):
     def _fuse(self, depth, R, t, kf_slot):
         self.grid = fusion.fuse_frame(
             self.grid, depth, self.cache, R, t, self.cfg.grid, self.cfg.fusion,
-            accumulate_gradients=False, acc=self.acc)
+            accumulate_gradients=False, acc=self.acc, scratch=self.scratch)
 
     # -- queries ------------------------------------------------------------
     def tsdf(self, points):

@@ -188,6 +188,13 @@ def track_frame(
     the loop kernel on a CUDA map, the plain loop on the CPU (module
     note)."""
     dev = depth.device
+    if dev.type == "cuda" and tcfg.num_iterations < 1:
+        # the JAX loop's condition is false at once: the start pose, not
+        # converged, no iteration, no residual (and no launch: the loop
+        # kernel takes at least one iteration)
+        R, t = _pose_copy(R0, t0, dev)
+        return TrackResult(R=R, t=t, converged=False, num_iters=0,
+                           energy=0.0, num_valid=0)
     pts = compact_points(depth, K, fcfg, tcfg)
     if dev.type == "cuda":
         R, t = _pose_copy(R0, t0, dev)

@@ -9,31 +9,38 @@ Port of `gradient_sdf_tpu/ops/fusion.py` (`MapGradPixelSdf::update`,
   3. Every valid pixel walks 2*floor(T/vs)+1 voxel samples along its ray
      (:79, :101-106): sample point -> nearest voxel -> projective SDF.
   4. Block allocation for the touched blocks (claim insert,
-     ops.voxel_grid), then ONE scatter-add of (w, w*trunc(sdf), w*R n) per
-     sample into the [nvox, 8] accumulator (one 32-byte row per voxel) — on
-     the card that is the hand-written kernel (ops/kernels/scatter_add.py),
-     which takes the five fields as they are, without a stacked copy.
+     ops.voxel_grid), then a scatter-add of (w, w*trunc(sdf), w*R n) per
+     sample into the [nvox, 8] accumulator (one 32-byte row per voxel).
   5. Merge with the running state: W' = W + sum w,
      d' = (d W + sum w trunc_sdf) / W', g' = g + sum w R n — the
      order-independent fixed point of the reference's running mean
-     (:108-116) — and zero the accumulator again, both over the allocated
-     blocks only; on the card that is the second hand-written kernel
-     (ops/kernels/merge_clear.py).
+     (:108-116) — and zero the accumulator again, over the touched blocks
+     only (an untouched row's accumulator is zero).
+
+`fuse_frame` runs steps 2-5 through `ops/kernels/fuse_integrate.py`: on
+the card two launches of its hand-written kernel, the claim pass (gates,
+walk, lookup; it marks the samples whose block is missing and counts them
+and the oob samples) and the integrate-and-merge pass (walk, lookup,
+scatter, merge, visibility bits), with the block claim (`claim_blocks`:
+the marked candidates in order and `voxel_grid.insert_new`, plain PyTorch)
+between them when a frame opens blocks; on the CPU their plain versions.
+Slot order is the JAX package's: the claim's winners are ordered by their
+global (pixel, k) candidate index.
+
+Host syncs per frame on the card: the claim pass's 8-byte status read; on
+a frame that opens blocks, `insert_new`'s masked writes. `GradSdfMap.update`
+adds one for the growth flags.
+
+`frame_samples`, `_alloc_slots`, `_scatter_samples` and
+`_merge_accumulators` are the same steps as plain tensor passes around the
+scatter kernel (ops/kernels/scatter_add.py) and `merge_clear`
+(ops/kernels/merge_clear.py): the mesh's sharded fusion
+(`parallel/sharding.py`) runs them.
 
 The accumulator is all-zero on entry and on exit. `GradSdfMap` owns one for
-the life of the map and passes it in as `acc`, so the card never zeroes
-or merges the whole grid per frame; a bare call without `acc` allocates
-(and drops) its own. It is scratch, not part of the map's saved state.
-
-The valid pixels are compacted once (exactly, with a dynamic shape) and all
-of them go through one pass. The JAX package walks fixed-size chunks of the
-compacted rays in a `while_loop` instead; the slot order is the same,
-because in both the claim's winners are ordered by their global (pixel, k)
-candidate index.
-
-Host syncs per frame (each waits for the device): the compaction's
-`nonzero`, the `any(need)` test before the claim insert, and the claim's
-masked writes. `GradSdfMap.update` adds one for the growth flags.
+the life of the map, with the kernel's scratch (`fuse_integrate.new_scratch`),
+and passes both in; a bare call without them allocates (and drops) its own.
+Neither is part of the map's saved state.
 
 The grid's tensors are updated IN PLACE (see ops/voxel_grid.py); use the
 returned grid.
@@ -48,6 +55,7 @@ import torch
 from ..config import FusionConfig, GridConfig
 from . import voxel_grid as vg
 from .filters import median_blur
+from .kernels import fuse_integrate as fi
 from .kernels.merge_clear import merge_clear
 from .kernels.scatter_add import new_accumulator as _new_rows
 from .kernels.scatter_add import scatter_add_fields
@@ -260,20 +268,24 @@ def _merge_accumulators(grid: vg.VoxelGrid, acc, accumulate_gradients: bool):
     return grid
 
 
-def _merge_vis(grid: vg.VoxelGrid, vis, touched_flat, kf_slot):
-    """OR the frame's touched-voxel mask into keyframe slot `kf_slot` of the
-    visibility bitfield (negative slot = not a keyframe -> unchanged).
-
-    `vis` is int32 [num_blocks, B^3, words] holding the JAX package's uint32
-    bit patterns (torch's uint32 lacks shifts); bit 31 reads negative."""
-    kslot = int(kf_slot)
-    if kslot < 0:
-        return vis
-    word = min(max(kslot // 32, 0), vis.shape[-1] - 1)
-    bit = kslot % 32
-    mark = touched_flat.reshape(grid.dist.shape).to(torch.int32) << bit
-    vis[..., word] |= mark
-    return vis
+def claim_blocks(grid: vg.VoxelGrid, mark: torch.Tensor, keys: torch.Tensor,
+                 misses: int, oob: int, gcfg: GridConfig) -> vg.VoxelGrid:
+    """Allocate the blocks of the claim pass's `misses` marked candidates
+    (`mark` uint8, `keys` int32, one entry per candidate): taken in
+    candidate order (`nonzero_static` with the known count: no host sync),
+    they are the frame's missing samples in the JAX package's claim order,
+    and `insert_new` over their keys hands out its slots. Their marks are
+    cleared again (the kernel's buffer is all-zero between frames). Adds
+    the pass's `oob` count to `oob_samples`. No device op for 0 and 0."""
+    if misses:
+        idx = torch.nonzero_static(mark, size=misses).reshape(-1)
+        want = keys[idx]
+        mark.index_fill_(0, idx, 0)
+        grid = vg.insert_new(grid, want, torch.ones_like(idx, dtype=torch.bool),
+                             gcfg)
+    if oob:
+        grid = grid._replace(oob_samples=grid.oob_samples + oob)
+    return grid
 
 
 def fuse_frame(
@@ -289,6 +301,7 @@ def fuse_frame(
     kf_slot: Optional[int] = None,
     accumulate_gradients: bool = True,
     acc: Optional[torch.Tensor] = None,
+    scratch: Optional[fi.FuseScratch] = None,
 ):
     """Integrate one depth frame under pose (R, t) (camera-to-world).
 
@@ -297,19 +310,27 @@ def fuse_frame(
     to mark (negative = not a keyframe). `accumulate_gradients=False` gives
     the baseline TSDF fusion (`MapPixelSdf::update`,
     MapPixelSdf.cpp:114-189). `acc` is the caller's all-zero accumulator
-    (`new_accumulator(grid)`), all-zero again on return; without it one is
+    (`new_accumulator(grid)`), all-zero again on return, and `scratch` the
+    kernel's (`fuse_integrate.new_scratch(grid)`); without them they are
     allocated for this call. All tensors must be on the grid's device.
     """
-    s = frame_samples(depth, cache, R, t, gcfg, fcfg)
-    grid, lin, ok = _alloc_slots(grid, s, gcfg)
+    normal_img = compute_normals(cache, depth).contiguous()
+    if fcfg.median_blur_depth:
+        depth = median_blur(depth, 5)
+    depth = depth.contiguous()
     if acc is None:
         acc = new_accumulator(grid)
-    _scatter_samples(acc, lin, s, accumulate_gradients)
-    grid = _merge_accumulators(grid, acc, accumulate_gradients)
+    if scratch is None:
+        scratch = fi.new_scratch(grid)
+    R = R.to(torch.float32).contiguous()
+    t = t.to(torch.float32).contiguous()
+    status, mark, keys = fi.claim_pass(depth, normal_img, cache, R, t, grid,
+                                       gcfg, fcfg, scratch)
+    misses, oob = status.tolist()   # the frame's one host sync
+    grid = claim_blocks(grid, mark, keys, misses, oob, gcfg)
+    fi.integrate_merge(depth, normal_img, cache, R, t, grid, gcfg, fcfg, acc,
+                       scratch, accumulate_gradients=accumulate_gradients,
+                       vis=vis, kf_slot=kf_slot)
     if vis is None:
         return grid
-    nvox = grid.num_blocks * grid.voxels_per_block
-    touched = torch.zeros(nvox + 1, dtype=torch.bool, device=grid.device)
-    touched[lin[ok].long()] = True
-    vis = _merge_vis(grid, vis, touched[:nvox], -1 if kf_slot is None else kf_slot)
     return grid, vis

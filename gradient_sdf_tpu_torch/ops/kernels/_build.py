@@ -29,11 +29,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # flags for single sources. The march decides which voxel a probe reads by
 # rounding o + s*d, the GN residual pass which voxel a point reads by
-# rounding (R x + t) / vs: both are built without fused multiply-adds, so
-# that each and its plain PyTorch version round alike (see the notes in the
-# sources).
+# rounding (R x + t) / vs, fusion's walk which voxel a sample lands in by
+# rounding ((z + k vs) R h + t) / vs: all three are built without fused
+# multiply-adds, so that each and its plain PyTorch version round alike (see
+# the notes in the sources).
 SOURCE_FLAGS = {"raycast_march.cu": ["-fmad=false"],
-                "gn_track.cu": ["-fmad=false"]}
+                "gn_track.cu": ["-fmad=false"],
+                "fuse_integrate.cu": ["-fmad=false"]}
 
 _lib = None
 build_seconds = None   # wall time of this process's build (0.0 if reused)
@@ -64,8 +66,9 @@ def _sources():
 
 
 def _digest(sources) -> str:
+    """Hash of the flags, the sources and the headers they share."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(s).encode())
         h.update(" ".join(SOURCE_FLAGS.get(os.path.basename(s), [])).encode())
         with open(s, "rb") as f:
@@ -106,6 +109,18 @@ def _declare(lib):
     # sums, R, t, status, damping, conv_sq, stream
     lib.gsdf_gn_step_f32.argtypes = [vp] * 4 + [ctypes.c_float] * 2 + [vp]
     lib.gsdf_gn_step_f32.restype = ctypes.c_int
+    # fusion's two passes: a FuseArgs structure (fuse_integrate.FuseArgs),
+    # the integrate pass's field count, stream
+    lib.gsdf_fuse_claim_f32.argtypes = [vp, vp]
+    lib.gsdf_fuse_claim_f32.restype = ctypes.c_int
+    lib.gsdf_fuse_integrate_f32.argtypes = [vp, ctypes.c_int, vp]
+    lib.gsdf_fuse_integrate_f32.restype = ctypes.c_int
+    # field count, int[4] out: CTAs an SM holds, SMs, threads, cooperative
+    lib.gsdf_fuse_integrate_shape.argtypes = [ctypes.c_int, vp]
+    lib.gsdf_fuse_integrate_shape.restype = ctypes.c_int
+    # stream: the empty cooperative launch at the integrate pass's grid
+    lib.gsdf_fuse_coop_empty.argtypes = [vp]
+    lib.gsdf_fuse_coop_empty.restype = ctypes.c_int
 
 
 def declare_gn_track_loop(lib):

@@ -14,7 +14,10 @@ dense form was the most expensive part of fusing a frame, so here it is
 the hand-written kernel of `csrc/merge_clear.cu` (see the note there),
 which reads `num_active` on the device and touches only the rows of the
 block slots [0, num_active). On a CUDA tensor the wrapper launches that
-kernel or raises; on a CPU tensor it takes `merge_clear_reference`.
+kernel or raises; on a CPU tensor it takes `merge_clear_reference`. The
+mesh's sharded fusion (`parallel/sharding.py`) merges each rank's shard
+with it; one card's fusion merges inside `fuse_integrate`'s second launch
+instead, with the same arithmetic over the blocks the frame touched.
 
 Restricting the merge to the allocated slots is exact: slots are handed
 out contiguously from 0 (`voxel_grid.insert_new`), and an unallocated slot

@@ -18,8 +18,10 @@ contiguous [out_size, F] destination works too, with scalar reductions.
 `unpack_multi` is the identity kept for API parity.
 
 The payload comes either as one [N, F] array (`scatter_add_multi`) or as F
-separate [N] arrays (`scatter_add_fields`, which fusion uses so that no
-[N, F] copy is built); both reach the same kernel.
+separate [N] arrays (`scatter_add_fields`, which the mesh's fusion uses so
+that no [N, F] copy is built); both reach the same kernel. One card's
+fusion scatters inside `fuse_integrate`'s second launch instead, with this
+kernel's device code (`csrc/warp_scatter.cuh`).
 """
 
 from __future__ import annotations

@@ -30,6 +30,19 @@ reached only through its own Python package, so any earlier version of
 the package will do. `--tree DIR SAMPLES` is what the script passes to
 itself for part 3: it imports the package from DIR and measures that tree
 alone on the samples saved in SAMPLES.
+
+    python3 gradient_sdf_tpu_torch/tools/fusion_bench.py --split [--parent DIR]
+
+runs only the split of `fuse_frame` instead: per tree (parent, this, this,
+parent with `--parent`, each in its own process through its own package,
+`--split-tree DIR`), golden frames 1-5 fused from ground-truth poses with
+the tree's single-card path written out part by part (`fuse_parts`), each
+part timed on the host clock (synchronized before and after) and with CUDA
+events around it, and counted once under the profiler (kernel launches,
+memsets and copies) and PyTorch's sync debug mode (host syncs); beside it
+the whole `fuse_frame` on the host clock. Then Scan3D on the golden
+dataset through each tree's app in the same turns (`track_bench.app_turns`:
+track_ms, fuse_ms, fps).
 """
 
 import argparse
@@ -337,6 +350,496 @@ def part_loops():
     return out
 
 
+def box_protocol():
+    """(pipeline config, [depth numpy], [(R, t)]) of the box world as
+    `make_synth --world box` renders it (6 VGA frames over 4 degrees, seed
+    2, depth rounded to mm as its PNG), fused at 1 cm."""
+    import numpy as np
+    from gradient_sdf_tpu_torch.config import PipelineConfig
+    from gradient_sdf_tpu_torch.data import synth
+
+    cfg = PipelineConfig()
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, voxel_size=0.01),
+        fusion=dataclasses.replace(cfg.fusion, trunc_voxels=5.0))
+    world = synth.default_boxes(seed=2, device="cpu")
+    poses = synth.orbit_poses(n=6, radius=1.8, height_range=(0.35, 0.6),
+                              target=np.array([0.0, 0.0, -0.25]),
+                              arc=np.deg2rad(4.0))
+    depths = [synth.quantize_depth(synth.render_depth_boxes(world, R, t)).numpy()
+              for R, t in poses]
+    return cfg, depths, poses
+
+
+def fuse_steps(m, depth, R, t, *, kernel, kf_slot=None,
+               accumulate_gradients=True):
+    """One frame through `fusion.fuse_frame`'s steps on the map `m`: the
+    claim pass, the block claim, the integrate pass, with the kernel
+    (`kernel=True`) or with its plain versions on the same device. Returns
+    the claim's (misses, oob, marked candidates, their keys)."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+
+    gcfg, fcfg = m.cfg.grid, m.cfg.fusion
+    nrm = fusion.compute_normals(m.cache, depth).contiguous()
+    if fcfg.median_blur_depth:
+        depth = fusion.median_blur(depth, 5)
+    depth = depth.contiguous()
+    if kernel:
+        status, mark, keys = fi.claim_pass(depth, nrm, m.cache, R, t, m.grid,
+                                           gcfg, fcfg, m.scratch)
+    else:
+        status, mark, keys = fi.claim_pass_reference(depth, nrm, m.cache, R, t,
+                                                     m.grid, gcfg, fcfg)
+    misses, oob = status.tolist()
+    cand = torch.nonzero(mark).reshape(-1)
+    cand_keys = keys[cand]
+    m.grid = fusion.claim_blocks(m.grid, mark, keys, misses, oob, gcfg)
+    if bool(mark.any()):
+        raise AssertionError("the claim's marks were not cleared")
+    kw = dict(accumulate_gradients=accumulate_gradients, vis=m.vis,
+              kf_slot=kf_slot)
+    if kernel:
+        fi.integrate_merge(depth, nrm, m.cache, R, t, m.grid, gcfg, fcfg,
+                           m.acc, m.scratch, **kw)
+    else:
+        fi.integrate_merge_reference(depth, nrm, m.cache, R, t, m.grid, gcfg,
+                                     fcfg, m.acc, **kw)
+    return misses, oob, cand, cand_keys
+
+
+def kernel_vs_twin(cfg, depths, poses, K, dev, tol, *, kf_slot=None,
+                   accumulate_gradients=True):
+    """Fuse `depths` at `poses` into a map on `dev` through the kernel and,
+    from a copy of the same state before every frame, through its plain
+    versions (`fuse_steps`); hold the two together after every frame: the
+    claims (miss and oob counts, candidates) and the maps' directory,
+    coarse occupancy, block coordinates, block count, overflow, oob counter
+    and visibility words bit for bit, the fields within `tol` ({"weight",
+    "dist", "grad"}: float atomics reorder one frame's sums), both
+    accumulators and the kernel's block marks all-zero.
+    Raises AssertionError on a difference; returns {"frames", "misses",
+    "oob", "blocks", "overflow", "weight", "dist", "grad"} (the largest
+    errors)."""
+    import torch
+    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+
+    maps = [GradSdfMap(cfg, with_vis=kf_slot is not None, device=dev)
+            for _ in range(2)]
+    out = {"frames": 0, "misses": 0, "oob": 0, "weight": 0.0, "dist": 0.0,
+           "grad": 0.0}
+    for depth, (R, t) in zip(depths, poses):
+        d = torch.as_tensor(depth, dtype=torch.float32, device=dev)
+        R = torch.as_tensor(R, dtype=torch.float32, device=dev)
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        # the plain versions start from the kernel's state
+        maps[1].grid = type(maps[0].grid)(*(a.clone() for a in maps[0].grid))
+        if kf_slot is not None:
+            maps[1].vis = maps[0].vis.clone()
+        claims = []
+        for m, kernel in zip(maps, (True, False)):
+            m.ensure_cache(K, d.shape[1], d.shape[0])
+            claims.append(fuse_steps(m, d, R, t, kernel=kernel,
+                                     kf_slot=kf_slot,
+                                     accumulate_gradients=accumulate_gradients))
+        (mk, ok_, ck, kk), (mt, ot, ct, kt) = claims
+        what = f"frame {out['frames']}"
+        same = torch.equal(ck, ct) and torch.equal(kk, kt)
+        if (mk, ok_) != (mt, ot) or ck.numel() != mk or not same:
+            raise AssertionError(
+                f"{what}: claim (misses, oob) kernel {(mk, ok_)} vs plain "
+                f"{(mt, ot)}, marked candidates and keys equal {same}")
+        gk, gt = maps[0].grid, maps[1].grid
+        for k in ("directory", "coarse_occ", "block_coords", "num_active",
+                  "overflow", "oob_samples"):
+            if not torch.equal(getattr(gk, k), getattr(gt, k)):
+                raise AssertionError(f"{what}: {k} differs kernel vs plain")
+        if kf_slot is not None and not torch.equal(maps[0].vis, maps[1].vis):
+            raise AssertionError(f"{what}: visibility words differ")
+        errs = {"weight": (gk.weight - gt.weight).abs().max(),
+                "dist": (gk.dist - gt.dist).abs().max(),
+                "grad": max((getattr(gk, g) - getattr(gt, g)).abs().max()
+                            for g in ("grad_x", "grad_y", "grad_z"))}
+        for k, e in errs.items():
+            e = float(e)
+            out[k] = max(out[k], e)
+            if not e <= tol[k]:
+                raise AssertionError(f"{what}: {k} kernel vs plain max |err| "
+                                     f"{e} > {tol[k]}")
+        if any(bool(m.acc.any()) for m in maps) or bool(
+                maps[0].scratch.marks.any()):
+            raise AssertionError(f"{what}: accumulator or marks not zero")
+        out["frames"] += 1
+        out["misses"] += mk
+        out["oob"] += ok_
+    out["blocks"] = int(maps[0].grid.num_active)
+    out["overflow"] = bool(maps[0].grid.overflow)
+    if out["blocks"] <= 0 or not bool(maps[0].grid.weight.any()):
+        raise AssertionError("nothing was fused")
+    return out
+
+
+# float32 operations a valid pixel's ray and a live sample take in the
+# kernel (counted from csrc/fuse_integrate.cu: gates, R h and R n; the
+# walk, rounding, SDF, weight and payload), and the card's float32 rate
+# outside the tensor cores (H100 SXM data sheet)
+OPS_PER_RAY, OPS_PER_SAMPLE = 39, 40
+FP32_PER_S = 67e12
+IMAGE_BYTES_PER_PIXEL = 28   # depth, normal, x0, y0, 1/|h|^2
+
+
+def fuse_bounds(m, depth, R, t, misses):
+    """Least times (ms) of the two launches on this frame and map, each
+    the larger of bytes (each input read once, each output written once)
+    and operations: the claim pass reads the images and every directory
+    sector a live sample needs and writes the `misses` marks (a byte) and
+    keys and the status; the
+    integrate pass reads the images and those sectors again, reads and
+    writes every touched accumulator row once (8 B a field) and merges the
+    touched blocks' rows (`merge_bound_ms`'s 80 B a row). Returns
+    {"claim": (ms, by), "integrate": (ms, by), "rows", "blocks",
+    "sectors"}."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+
+    gcfg, fcfg = m.cfg.grid, m.cfg.fusion
+    nrm = fusion.compute_normals(m.cache, depth).contiguous()
+    idx, s = fi.frame_walk(depth, nrm, m.cache, R, t, gcfg, fcfg)
+    live = s.keys >= 0
+    sectors = int(torch.unique(s.keys[live] // 8).numel())
+    slot = vg.lookup_keys(m.grid, s.keys, gcfg)
+    ok = slot >= 0
+    rows = int(torch.unique((slot * gcfg.voxels_per_block + s.local_lin)[ok]).numel())
+    blocks = int(torch.unique(slot[ok]).numel())
+    image = depth.numel() * IMAGE_BYTES_PER_PIXEL
+    ops = (idx.numel() * OPS_PER_RAY + int((s.w > 0).sum()) * OPS_PER_SAMPLE
+           ) / FP32_PER_S * 1e3
+
+    def bound(nbytes):
+        b = nbytes / MEM_BYTES_PER_S * 1e3
+        return (b, "bytes") if b >= ops else (ops, "operations")
+
+    return {"claim": bound(image + 32 * sectors + 5 * misses + 8),
+            "integrate": bound(image + 32 * sectors + rows * 8 * 5
+                               + merge_bound_ms(blocks * gcfg.voxels_per_block)
+                               * MEM_BYTES_PER_S / 1e3),
+            "rows": rows, "blocks": blocks, "sectors": sectors}
+
+
+def fuse_kernel_times(m, depth, R, t):
+    """Device times (ms, `median_ms`) of the two launches on golden frame
+    5's state `m` (frames 0-4 fused through the kernel): the claim pass and
+    its plain version (which compacts: a host sync, timed with it), then,
+    after this frame's blocks are claimed, the integrate pass and its plain
+    version each on a copy of the map's fields (repeated integration of the
+    same frame is the same work), and the launch floor of the integrate
+    pass (an empty cooperative launch at its grid). Leaves `m` with frame
+    5's blocks claimed and nothing integrated."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+
+    gcfg, fcfg = m.cfg.grid, m.cfg.fusion
+    nrm = fusion.compute_normals(m.cache, depth).contiguous()
+    args = (depth, nrm, m.cache, R, t)
+    claim = median_ms(lambda: fi.claim_pass(*args, m.grid, gcfg, fcfg, m.scratch))
+    claim_plain = median_ms(lambda: fi.claim_pass_reference(*args, m.grid, gcfg,
+                                                            fcfg))
+    status, mark, keys = fi.claim_pass(*args, m.grid, gcfg, fcfg, m.scratch)
+    misses, oob = status.tolist()
+    bounds = fuse_bounds(m, depth, R, t, misses)
+    m.grid = fusion.claim_blocks(m.grid, mark, keys, misses, oob, gcfg)
+
+    def spare():
+        g = m.grid._replace(**{k: getattr(m.grid, k).clone() for k in (
+            "weight", "dist", "grad_x", "grad_y", "grad_z")})
+        return g, fusion.new_accumulator(g), fi.new_scratch(g)
+
+    g, acc, scr = spare()
+    integ = median_ms(lambda: fi.integrate_merge(*args, g, gcfg, fcfg, acc, scr))
+    g, acc, _ = spare()
+    integ_plain = median_ms(lambda: fi.integrate_merge_reference(
+        *args, g, gcfg, fcfg, acc))
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        if lib.gsdf_fuse_coop_empty(stream) != 0:
+            raise AssertionError("the empty cooperative launch failed")
+
+    floor = median_ms(empty)
+    return {"claim_ms": claim, "claim_plain_ms": claim_plain,
+            "integrate_ms": integ, "integrate_plain_ms": integ_plain,
+            "coop_empty_ms": floor, "misses": misses, "bounds": bounds,
+            "shape": fi.integrate_shape(5)}
+
+
+def count_fuse_frame(m, depth, R, t):
+    """`fusion.fuse_frame` on the card for one frame of the map `m`
+    (updated as the map's `update` would fuse it), with its launches and
+    host syncs counted: each kernel's launch counter, the CUDA kernels,
+    memsets and copies under the profiler, and the syncs at the status read
+    (a line of `fusion.fuse_frame`), inside `voxel_grid.insert_new`, and
+    anywhere else (`track_bench.count_syncs`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+    from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
+    from gradient_sdf_tpu_torch.tools.track_bench import _lines, count_syncs
+
+    for mod in (fi, mc, sa):
+        mod.reset_launch_count()
+    torch.cuda.synchronize()
+
+    def fuse():
+        m.grid = fusion.fuse_frame(m.grid, depth, m.cache, R, t, m.cfg.grid,
+                                   m.cfg.fusion, acc=m.acc, scratch=m.scratch)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, syncs = count_syncs(fuse)
+        torch.cuda.synchronize()
+    where = {"status": _lines(fusion.fuse_frame),
+             "insert_new": _lines(vg.insert_new)}
+    n = {k: sum(f == file and line in lines for f, line, _ in syncs)
+         for k, (file, lines) in where.items()}
+    return {"claim": fi.claim_launch_count, "integrate": fi.launch_count,
+            "scatter_add": sa.launch_count, "merge_clear": mc.launch_count,
+            "device_ops": sum(e.count for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA),
+            "status_syncs": n["status"], "insert_syncs": n["insert_new"],
+            "other_syncs": len(syncs) - sum(n.values())}
+
+
+SPLIT_ROUNDS = 5   # fresh maps fused over frames 0-5, after one warm-up
+
+
+def fuse_parts(m, depth, R, t):
+    """The imported package's single-card `fuse_frame` (no visibility
+    bits, the map's accumulator) written out as [(part, fn)], run in
+    order; the map's grid is updated as `fuse_frame` would. The package
+    with `ops/kernels/fuse_integrate.py` takes its path (normals, claim
+    pass and status read, block claim, integrate-and-merge launch); an
+    earlier one the plain walk (normals, pixel gates and compaction,
+    sample walk, lookup, `need.any()`, claim insert, scatter,
+    `merge_clear`). A `vis` part ORs a keyframe bit into a spare bitfield
+    (the PhotoBA map's extra; the app's map has none)."""
+    import importlib.util
+
+    import torch
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+
+    gcfg, fcfg = m.cfg.grid, m.cfg.fusion
+    st = {}
+
+    def normals():
+        st["nrm"] = fusion.compute_normals(m.cache, depth)
+
+    if importlib.util.find_spec(
+            "gradient_sdf_tpu_torch.ops.kernels.fuse_integrate") is not None:
+        from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+
+        def claim():
+            status, st["mark"], st["keys"] = fi.claim_pass(
+                depth, st["nrm"], m.cache, R, t, m.grid, gcfg, fcfg, m.scratch)
+            st["misses"], st["oob"] = status.tolist()
+
+        def blocks():
+            m.grid = fusion.claim_blocks(m.grid, st["mark"], st["keys"],
+                                         st["misses"], st["oob"], gcfg)
+
+        def integrate():
+            fi.integrate_merge(depth, st["nrm"], m.cache, R, t, m.grid, gcfg,
+                               fcfg, m.acc, m.scratch)
+
+        return [("normals", normals), ("claim pass + status read", claim),
+                ("block claim (nonzero_static + insert_new)", blocks),
+                ("integrate + merge", integrate)]
+
+    def rays():
+        r = fusion._pixel_rays(depth, st["nrm"], m.cache, fcfg)
+        idx = torch.nonzero(r.valid).reshape(-1)
+        st["rays"] = fusion.FrameRays(
+            *(a[idx] for a in r[:-1]),
+            valid=torch.ones_like(idx, dtype=torch.bool))
+
+    def samples():
+        st["s"] = fusion._ray_samples(st["rays"], R, t, gcfg, fcfg)
+
+    def lookup():
+        st["slot"] = vg.lookup_keys(m.grid, st["s"].keys, gcfg)
+        st["need"] = (st["s"].keys >= 0) & (st["slot"] < 0)
+
+    def need_any():
+        st["any"] = bool(st["need"].any())
+
+    def insert():
+        g, s, slot = m.grid, st["s"], st["slot"]
+        if st["any"]:
+            g = vg.insert_new(g, s.keys, st["need"], gcfg)
+            slot = vg.lookup_keys(g, s.keys, gcfg)
+        g = g._replace(oob_samples=g.oob_samples + s.oob)
+        ok = slot >= 0
+        nvox = g.num_blocks * g.voxels_per_block
+        st["lin"] = torch.where(ok, slot * gcfg.voxels_per_block + s.local_lin,
+                                torch.full_like(slot, nvox))
+        st["ok"] = ok
+        m.grid = g
+
+    def scatter():
+        fusion._scatter_samples(m.acc, st["lin"], st["s"], True)
+
+    def merge():
+        fusion._merge_accumulators(m.grid, m.acc, True)
+
+    def vis():
+        nvox = m.grid.num_blocks * m.grid.voxels_per_block
+        touched = torch.zeros(nvox + 1, dtype=torch.bool, device=m.grid.device)
+        touched[st["lin"][st["ok"]].long()] = True
+        fusion._merge_vis(m.grid, st["vis"], touched[:nvox], 0)
+
+    st["vis"] = torch.zeros(tuple(m.grid.dist.shape) + (1,), dtype=torch.int32,
+                            device=m.grid.device)
+    return [("normals", normals), ("pixel gates + nonzero compaction", rays),
+            ("sample walk (_ray_samples)", samples), ("lookup", lookup),
+            ("need.any()", need_any), ("insert_new + re-lookup + oob", insert),
+            ("scatter (scatter_add_multi)", scatter),
+            ("merge_clear", merge), ("vis", vis)]
+
+
+def split_tree():
+    """The split of `fuse_frame` for the imported tree (module note): per
+    part, the mean over frames 1-5 of each frame's median over
+    SPLIT_ROUNDS fresh maps, host ms and device ms, and per frame its
+    launches and host syncs; the whole `fuse_frame` likewise."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.tools.track_bench import count_syncs
+
+    dev = torch.device("cuda")
+    cfg, depths, poses = golden_protocol()
+    K = synth.KINECT_K
+    dd = [torch.as_tensor(d, dtype=torch.float32, device=dev) for d in depths]
+    pp = [tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in p)
+          for p in poses]
+
+    def fresh():
+        m = GradSdfMap(cfg, device=dev)
+        m.update(dd[0], K, poses[0])
+        torch.cuda.synchronize()
+        return m
+
+    def run(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, ev[0].elapsed_time(ev[1])
+
+    parts = {}    # name -> frame -> [(host, dev)]
+    whole = {}    # frame -> [host ms]
+    for rnd in range(SPLIT_ROUNDS + 1):
+        m, mw = fresh(), fresh()
+        for i in range(1, 6):
+            for name, fn in fuse_parts(m, dd[i], *pp[i]):
+                got = run(fn)
+                if rnd:
+                    parts.setdefault(name, {}).setdefault(i, []).append(got)
+            host, _ = run(lambda: setattr(mw, "grid", fusion.fuse_frame(
+                mw.grid, dd[i], mw.cache, *pp[i], cfg.grid, cfg.fusion,
+                acc=mw.acc, **({"scratch": mw.scratch}
+                               if hasattr(mw, "scratch") else {}))))
+            if rnd:
+                whole.setdefault(i, []).append(host)
+
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    out = {"parts": [], "whole": {}}
+    for name, frames in parts.items():
+        host = [med([h for h, _ in frames[i]]) for i in range(1, 6)]
+        devt = [med([d for _, d in frames[i]]) for i in range(1, 6)]
+        out["parts"].append({"part": name, "host_ms": host, "device_ms": devt})
+    out["whole"]["host_ms"] = [med(whole[i]) for i in range(1, 6)]
+
+    # launches and host syncs of each part, once per frame, after a first
+    # profiled frame (the profiler missed the package's own kernels in its
+    # first sessions of a process)
+    m = fresh()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for _, fn in fuse_parts(fresh(), dd[1], *pp[1]):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for i in range(1, 6):
+        for name, fn in fuse_parts(m, dd[i], *pp[i]):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, syncs = count_syncs(fn)
+                torch.cuda.synchronize()
+            n = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+            counts.setdefault(name, []).append((n, len(syncs)))
+    for row in out["parts"]:
+        row["launches"] = [c[0] for c in counts[row["part"]]]
+        row["syncs"] = [c[1] for c in counts[row["part"]]]
+    out["blocks_active"] = int(m.grid.num_active)
+    return out
+
+
+def split_turns(parent, smi):
+    """`split_tree` per tree in turns, each in its own process, then the
+    app in the same turns (module note)."""
+    from gradient_sdf_tpu_torch.tools import track_bench
+
+    turns = [("this", OWN_ROOT)]
+    if parent:
+        turns = [("parent", parent), ("this", OWN_ROOT), ("this", OWN_ROOT),
+                 ("parent", parent)]
+    for name, root in turns:
+        cmd = [sys.executable, os.path.abspath(__file__), "--split-tree", root]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"split {name} tree, golden frames 1-5 from ground-truth poses "
+            f"({res['blocks_active']} blocks at the end) [{smi}]:")
+
+        def fmt(xs, digits=3):
+            return ", ".join(f"{x:.{digits}f}" for x in xs)
+
+        tot_h = tot_d = 0.0
+        for row in res["parts"]:
+            h = sum(row["host_ms"]) / 5
+            d = sum(row["device_ms"]) / 5
+            tot_h, tot_d = tot_h + h, tot_d + d
+            log(f"  {row['part']}: host {h:.3f} ms ({fmt(row['host_ms'])}), "
+                f"device {d:.4f} ms ({fmt(row['device_ms'], 4)}), launches "
+                f"{row['launches']}, host syncs {row['syncs']}")
+        w = res["whole"]["host_ms"]
+        log(f"  sum of parts (each synchronized): host {tot_h:.3f} ms, "
+            f"device {tot_d:.4f} ms; whole fuse_frame host {sum(w) / 5:.3f} "
+            f"ms ({fmt(w)})")
+    if parent:
+        track_bench.app_turns(parent, smi)
+
+
 def run_tree(root, samples):
     cmd = [sys.executable, os.path.abspath(__file__), "--tree", root, samples]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
@@ -350,8 +853,13 @@ def main():
     ap.add_argument("--parent", help="checkout of an earlier commit to compare")
     ap.add_argument("--tree", nargs=2, metavar=("DIR", "SAMPLES"),
                     help="measure the package in DIR alone (part 3)")
+    ap.add_argument("--split", action="store_true",
+                    help="only the split of fuse_frame (module note)")
+    ap.add_argument("--split-tree", metavar="DIR",
+                    help="the split for the package in DIR alone")
     args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.tree[0] if args.tree else OWN_ROOT))
+    root = args.tree[0] if args.tree else (args.split_tree or OWN_ROOT)
+    sys.path.insert(0, os.path.abspath(root))
     import torch
 
     if not torch.cuda.is_available():
@@ -363,10 +871,17 @@ def main():
         print(json.dumps({"scatter": tree_scatter(args.tree[1]),
                           "loops": part_loops()}), flush=True)
         return 0
+    if args.split_tree:
+        print(json.dumps(split_tree()), flush=True)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
+    if args.split:
+        split_turns(args.parent, smi)
+        log(smi)
+        return 0
     cases = {"in situ frame 5": part_in_situ()}
     cases.update(part_synthetic())
     turns = [("this", OWN_ROOT)]

@@ -1326,7 +1326,9 @@ def app_turns(parent, smi):
         # initialization lands there, so frames 2-5 are given apart
         log(f"scan3d golden frames 1-5, {name} tree (run {k}): track_ms mean "
             f"{mean(track):.2f} ({', '.join(f'{x:.2f}' for x in track)}; "
-            f"frames 2-5 {mean(track[1:]):.2f}), fuse_ms mean {mean(fuse):.2f}, "
+            f"frames 2-5 {mean(track[1:]):.2f}), fuse_ms mean {mean(fuse):.2f} "
+            f"({', '.join(f'{x:.2f}' for x in fuse)}; frames 2-5 "
+            f"{mean(fuse[1:]):.2f}), "
             f"GN iters {[e['gn_iters'] for e in fl]}, frame_ms "
             f"{', '.join(f'{x:.2f}' for x in frame)}: {1e3 / mean(frame):.2f} "
             f"fps, frames 2-5 {1e3 / mean(frame[1:]):.2f} fps [{smi}]")

@@ -461,3 +461,54 @@ def test_cuda_gn_kernels_match_plain(setup, mode):
     assert torch.equal(res.R, Rc) and torch.equal(res.t, tc)
     assert [res.converged, res.num_iters, res.energy, res.num_valid] == [
         st[0] != 0.0, int(st[4]), st[2], int(st[3])]
+
+
+def _jax_track(setup, d, R0, t0, tcfg):
+    jgrid = setup[2]
+    return jtr.track_frame(jgrid, jnp.asarray(d), jnp.asarray(K),
+                           jnp.asarray(R0), jnp.asarray(t0), GCFG, FCFG, tcfg)
+
+
+def test_track_frame_with_zero_iterations_matches_jax(setup):
+    """`TrackerConfig.num_iterations = 0`: the JAX `track_frame`'s loop
+    condition is false at once; the port returns the same, the start pose,
+    not converged, 0 iterations, E 0 and count 0, and launches nothing."""
+    _, poses, _, tgrid, depths = setup
+    R0, t0 = _perturbed(*poses[4])
+    tcfg = TrackerConfig(num_iterations=0)
+    rj = _jax_track(setup, depths[4], R0, t0, tcfg)
+    gt.reset_launch_count()
+    res = ttr.track_frame(tgrid, torch.from_numpy(depths[4]), K,
+                          torch.from_numpy(R0), torch.from_numpy(t0), GCFG,
+                          FCFG, tcfg)
+    assert (res.converged, res.num_iters, res.energy, res.num_valid) == (
+        bool(rj.converged), int(rj.num_iters), float(rj.energy),
+        int(rj.num_valid)) == (False, 0, 0.0, 0)
+    np.testing.assert_array_equal(res.R.numpy(), np.asarray(rj.R))
+    np.testing.assert_array_equal(res.t.numpy(), np.asarray(rj.t))
+    np.testing.assert_array_equal(res.R.numpy(), R0)
+    np.testing.assert_array_equal(res.t.numpy(), t0)
+    assert gt.loop_launch_count == gt.launch_count == gt.step_launch_count == 0
+
+
+@pytest.mark.gpu
+def test_cuda_track_frame_with_zero_iterations_launches_nothing(setup):
+    """On a CUDA map `num_iterations = 0` gives the JAX result without a
+    launch of the loop kernel (which takes at least one iteration)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA map's path)")
+    _, poses, _, tgrid, depths = setup
+    cg = type(tgrid)(*(a.cuda() for a in tgrid))
+    R0, t0 = _perturbed(*poses[4])
+    tcfg = TrackerConfig(num_iterations=0)
+    rj = _jax_track(setup, depths[4], R0, t0, tcfg)
+    gt.reset_launch_count()
+    res = ttr.track_frame(cg, torch.from_numpy(depths[4]).cuda(), K,
+                          torch.from_numpy(R0).cuda(),
+                          torch.from_numpy(t0).cuda(), GCFG, FCFG, tcfg)
+    assert gt.loop_launch_count == gt.launch_count == gt.step_launch_count == 0
+    assert (res.converged, res.num_iters, res.energy, res.num_valid) == (
+        bool(rj.converged), int(rj.num_iters), float(rj.energy),
+        int(rj.num_valid)) == (False, 0, 0.0, 0)
+    np.testing.assert_array_equal(res.R.cpu().numpy(), R0)
+    np.testing.assert_array_equal(res.t.cpu().numpy(), t0)
