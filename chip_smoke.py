@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from this checkout, checks each against its
 plain PyTorch version on the card, checks card fusion against the port on
 the CPU, holds fusion's two-launch kernel (`csrc/fuse_integrate.cu`) to its
 plain passes frame by frame on the golden protocol, the box world and every
-fusion option, and counts a fused frame's launches and host syncs (phase
-3b), then drives the Scan3D main path through its CLI entry point on
+fusion option, takes it apart by one-switch builds, and counts a fused
+frame's launches and host syncs, with golden frames 0-5 fused under
+PyTorch's sync debug mode "error" (phase 3b), then drives the Scan3D main path through its CLI entry point on
 the golden protocol (640x480 spheres, seed 2, 6 frames over a 4 degree
 arc, 2 cm voxels, app-default 16384-block grid) in tracking and in GT-pose
 mode, and checks what comes out. Then the second executable: PhotoBA
@@ -539,14 +540,17 @@ def phase_fusion():
 
 def phase_fuse_integrate(smi):
     """Phase 3b: fusion's kernel (`csrc/fuse_integrate.cu`: a claim pass
-    and one cooperative integrate-and-merge launch a frame) against its
-    plain versions on the card, frame by frame (`fusion_bench.kernel_vs_twin`:
-    claims, slot ids, directory, coarse occupancy, block coordinates, block
-    count, overflow, oob and visibility words bit for bit, fields within
-    FUSE_TOL, accumulator and marks zero) on golden frames 0-5, the box
-    world at 1 cm and every FusionConfig option the walk honours; then its
-    times on golden frame 5 beside its bound, its plain versions and its
-    launch floor, and a fused frame's launches and host syncs."""
+    and one cooperative launch that claims the blocks, integrates and
+    merges, a frame) against its plain versions on the card, frame by frame
+    (`fusion_bench.kernel_vs_twin`: claims, slot ids, directory, coarse
+    occupancy, block coordinates, block count, overflow, oob and visibility
+    words bit for bit, fields within FUSE_TOL, accumulator, marks and
+    claims back to idle) on golden frames 0-5, the box world at 1 cm and
+    every FusionConfig option the walk honours; the kernels taken apart by
+    one-switch builds on golden frames 0 and 5 (`fusion_bench.kernel_split`);
+    their times on golden frames 0 and 5 beside their bounds, their plain
+    versions and the launch floor; a fused frame's launches and host syncs,
+    and golden frames 0-5 fused under PyTorch's sync debug mode "error"."""
     import dataclasses
 
     import torch
@@ -587,62 +591,93 @@ def phase_fuse_integrate(smi):
         vis = "keyframe words, " if "kf_slot" in kw else ""
         log(f"  phase3b {name}: {r['frames']} frames, {r['misses']} missing "
             f"samples claimed, {r['oob']} oob, {r['blocks']} blocks; claims, "
-            f"slots, directory, coarse_occ, {vis}overflow, oob equal; max "
-            f"|err| weight {r['weight']:.3g} dist {r['dist']:.3g} grad "
-            f"{r['grad']:.3g}")
+            f"slots, directory, coarse_occ, block_coords, {vis}overflow, oob "
+            f"equal, scratch back to idle; max |err| weight {r['weight']:.3g} "
+            f"dist {r['dist']:.3g} grad {r['grad']:.3g}")
+
+    fb.split_report(fb.kernel_split(), smi, "phase3b split")
 
     def golden_map(n):
         m = GradSdfMap(cfg, device=dev)
         for i in range(n):
             m.update(depths[i], K, poses[i])
+        m.ensure_cache(K, 640, 480)
         return m
 
-    d5 = torch.as_tensor(depths[5], device=dev)
-    R5, t5 = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-              for a in poses[5])
-    tm = fb.fuse_kernel_times(golden_map(5), d5, R5, t5)
-    b = tm["bounds"]
+    def frame(i):
+        return (torch.as_tensor(depths[i], device=dev),
+                *(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in poses[i]))
+
+    times = {}
+    for n in (0, 5):
+        tm = times[n] = fb.fuse_kernel_times(golden_map(n), *frame(n))
+        b, bo = tm["bounds"], tm["bounds_open"]
+        log(f"phase3b times, golden frame {n} ({tm['misses']} missing samples, "
+            f"{tm['opened']} blocks opened, {b['valid']} valid pixels in "
+            f"{b['tiles']} tiles, "
+            f"{b['sectors']} directory sectors, {b['rows']} touched rows in "
+            f"{b['blocks']} blocks; integrate grid {tm['shape'][0]} x "
+            f"{tm['shape'][1]} CTAs of {tm['shape'][2]}) [{smi}]: claim "
+            f"{tm['claim_ms']:.4f} ms (bound {bo['claim'][0]:.5f}, "
+            f"{bo['claim'][1]}; plain {tm['claim_plain_ms']:.4f}); integrate "
+            f"opening the frame's blocks {tm['integrate_open_ms']:.4f} ms "
+            f"(bound {bo['integrate'][0]:.5f}, {bo['integrate'][1]}; plain "
+            f"block claim + integrate {tm['integrate_open_plain_ms']:.4f}); "
+            f"integrate opening none {tm['integrate_ms']:.4f} ms (bound "
+            f"{b['integrate'][0]:.5f}, {b['integrate'][1]}; plain "
+            f"{tm['integrate_plain_ms']:.4f}); empty cooperative launch "
+            f"{tm['coop_empty_ms']:.4f}")
     # a fused frame's launches and syncs: frame 5 opens blocks, the same
     # frame fused again opens none
     m = golden_map(5)
     before = int(m.grid.num_active)
-    grew = fb.count_fuse_frame(m, d5, R5, t5)
+    grew = fb.count_fuse_frame(m, *frame(5))
     opened = int(m.grid.num_active) - before
-    again = fb.count_fuse_frame(m, d5, R5, t5)
-    if int(m.grid.num_active) != before + opened:
-        raise AssertionError("fusing a frame again opened blocks")
-    for c, want_insert in ((grew, opened > 0), (again, False)):
+    again = fb.count_fuse_frame(m, *frame(5))
+    if opened <= 0 or int(m.grid.num_active) != before + opened:
+        raise AssertionError(f"frame 5 opened {opened} blocks, then "
+                             f"{int(m.grid.num_active) - before - opened}")
+    for c in (grew, again):
         if not (c["claim"] == c["integrate"] == 1
                 and c["scatter_add"] == c["merge_clear"] == 0
-                and c["status_syncs"] == 1 and c["other_syncs"] == 0
-                and (c["insert_syncs"] > 0) == want_insert):
+                and c["status_syncs"] == c["insert_syncs"] == 0
+                and c["other_syncs"] == 0
+                and c["insert_calls"] == c["claim_blocks_calls"] == 0):
             raise AssertionError(f"fused frame: {c}, {opened} blocks opened")
-    log(f"phase3b times, golden frame 5 ({tm['misses']} missing samples, "
-        f"{b['sectors']} directory sectors, {b['rows']} touched rows in "
-        f"{b['blocks']} blocks; integrate grid {tm['shape'][0]} x "
-        f"{tm['shape'][1]} CTAs of {tm['shape'][2]}) [{smi}]: claim "
-        f"{tm['claim_ms']:.4f} ms (bound {b['claim'][0]:.5f}, {b['claim'][1]}; "
-        f"plain {tm['claim_plain_ms']:.4f}), integrate + merge "
-        f"{tm['integrate_ms']:.4f} ms (bound {b['integrate'][0]:.5f}, "
-        f"{b['integrate'][1]}; plain {tm['integrate_plain_ms']:.4f}; empty "
-        f"cooperative launch {tm['coop_empty_ms']:.4f})")
+    # golden frames 0-5 with no host sync, against the map the app's
+    # update builds
+    m, ref = golden_map(0), golden_map(6)
+    blocks = fb.fuse_frames_without_sync(m, [frame(i)[0] for i in range(6)],
+                                         [frame(i)[1:] for i in range(6)])
+    if blocks != int(ref.grid.num_active) or not torch.equal(
+            m.grid.directory, ref.grid.directory):
+        raise AssertionError(f"fused without syncs: {blocks} blocks vs the "
+                             f"map's {int(ref.grid.num_active)}")
     log(f"phase3b a fused frame: {grew['claim']} claim + {grew['integrate']} "
         f"integrate launches, scatter_add {grew['scatter_add']}, merge_clear "
         f"{grew['merge_clear']}; {grew['device_ops']} device ops and "
-        f"{grew['status_syncs']} + {grew['insert_syncs']} host syncs (status "
-        f"read + insert_new) opening {opened} blocks; {again['device_ops']} "
-        f"device ops and {again['status_syncs']} + {again['insert_syncs']} "
-        f"host syncs opening none")
-    stats = {"claim": {"max_abs_err": 0.0, "ms": tm["claim_ms"],
-                       "plain_ms": tm["claim_plain_ms"],
-                       "bound_ms": b["claim"][0], "bound_by": b["claim"][1],
+        f"{grew['status_syncs'] + grew['insert_syncs'] + grew['other_syncs']} "
+        f"host syncs opening {opened} blocks, insert_new called "
+        f"{grew['insert_calls']} times, claim_blocks {grew['claim_blocks_calls']}; "
+        f"{again['device_ops']} device ops and "
+        f"{again['status_syncs'] + again['insert_syncs'] + again['other_syncs']}"
+        f" host syncs opening none; golden frames 0-5 fused under sync debug "
+        f"mode \"error\": {blocks} blocks, directory equal to the map's")
+    t5 = times[5]
+    stats = {"claim": {"max_abs_err": 0.0, "ms": t5["claim_ms"],
+                       "plain_ms": t5["claim_plain_ms"],
+                       "bound_ms": t5["bounds_open"]["claim"][0],
+                       "bound_by": t5["bounds_open"]["claim"][1],
                        "library_ms": None},
              "integrate": {"max_abs_err": max(err.values()),
-                           "ms": tm["integrate_ms"],
-                           "plain_ms": tm["integrate_plain_ms"],
-                           "bound_ms": b["integrate"][0],
-                           "bound_by": b["integrate"][1], "library_ms": None,
-                           "empty_launch_ms": tm["coop_empty_ms"]}}
+                           "ms": t5["integrate_ms"],
+                           "plain_ms": t5["integrate_plain_ms"],
+                           "bound_ms": t5["bounds"]["integrate"][0],
+                           "bound_by": t5["bounds"]["integrate"][1],
+                           "library_ms": None,
+                           "empty_launch_ms": t5["coop_empty_ms"],
+                           "opening_ms": t5["integrate_open_ms"]}}
     return stats
 
 
@@ -2417,7 +2452,7 @@ def main():
         "launches": counted_in("fuse_claim")[0],
         "launches_counted_in": counted_in("fuse_claim")[1],
         "timed_on": "phase 3b: golden frame 5 after frames 0-4 (the claim "
-                    "pass of one card's fusion: gates, walk, lookup)",
+                    "pass of one card's fusion: gates, walk, lookup, claims)",
         **fstats["claim"],
     }, {
         "name": "fuse_integrate",
@@ -2428,8 +2463,10 @@ def main():
                          "scatter and merge of one card's fusion)",
         "launches": counted_in("fuse_integrate")[0],
         "launches_counted_in": counted_in("fuse_integrate")[1],
-        "timed_on": "phase 3b: golden frame 5 after frames 0-4 and its claim "
-                    "(one cooperative launch: walk, lookup, scatter, merge)",
+        "timed_on": "phase 3b: golden frame 5 after frames 0-4 and its claim, "
+                    "opening no block (one cooperative launch: walk, lookup, "
+                    "scatter, merge; opening_ms: while it hands out frame "
+                    "5's new blocks)",
         **fstats["integrate"],
     }, {
         "name": "scatter_add_multi",

@@ -1,48 +1,71 @@
-// fuse_integrate: one depth frame's fusion on one card, in two launches —
-// the sample walk, the block lookup, the scatter into the frame
-// accumulator and the merge into the running voxel state.
+// fuse_integrate: one depth frame's fusion on one card, in two launches and
+// no host sync — the sample walk, the block claim, the scatter into the
+// frame accumulator and the merge into the running voxel state.
 //
 // Replaces, for single-card fusion, what the JAX package does in
 // gradient_sdf_tpu/ops/fusion.py as XLA-fused passes around its one Pallas
 // kernel: the pixel gates of `_pixel_rays`, the sample walk of
-// `_ray_samples` (:131), the lookups of `_alloc_slots` (:240), the scatter
-// of `_scatter_samples` (:330, whose Pallas form is scatter_add_multi,
+// `_ray_samples` (:131), the claim and lookups of `_alloc_slots` (:240,
+// with `voxel_grid.insert_new`), the scatter of `_scatter_samples` (:330,
+// whose Pallas form is scatter_add_multi,
 // gradient_sdf_tpu/ops/pallas/scatter_add.py:103), the merge of
 // `_merge_accumulators` (:362) and the touched mask of the visibility bits.
-// The claim of new blocks (`voxel_grid.insert_new`) stays plain PyTorch
-// between the two launches, fed by the first.
 //
-//   1. fuse_claim: one thread per pixel. It gates the pixel, walks its
+//   1. fuse_claim: a warp per 8 x 4 pixel tile, the warps of a CTA on tiles
+//      spread over the image. It gates the pixels, walks each valid pixel's
 //      K = 2 * floor(T / vs) + 1 samples and looks each live sample's block
-//      up in the dense directory. Candidate c = pixel * K + k over ALL
-//      pixels of the frame (no compaction: candidate order is the
-//      compacted order, since compaction keeps the pixel order) gets
-//      mark[c] = 1 and keys[c] = its block key if the sample is live and
-//      its block missing; the marks are all-zero before (the host clears
-//      the ones it took). It counts the misses and the live samples outside
-//      the directory's range in a two-int status, the host's only read of
-//      the frame. The host takes the marked candidates in order
-//      (`nonzero_static` with the miss count: no sync, no sort) and hands
-//      their keys to `insert_new`.
-//   2. fuse_integrate: ONE cooperative launch. Phase A walks every pixel's
-//      samples again, looks them up (after the claim) and adds (w,
-//      w * trunc(sdf), w * R n) into the voxel's 32-byte accumulator row
-//      with the scatter kernel's warp-aggregated device code
-//      (warp_scatter.cuh), marking each touched block slot. grid.sync().
-//      Phase B merges and clears the rows of the marked blocks only, with
+//      up in the dense directory, two lookups in flight. Candidate c = pixel * K + k (over ALL pixels of the frame,
+//      whatever thread walks it) of a live sample whose block is missing
+//      gets mark[c] = 1 and keys[c] = its key, and claims its block: the
+//      lanes of a warp that miss the same block (__match_any_sync) take
+//      their lowest id (__reduce_min_sync) and one atomicMin puts it into
+//      claims[key] (int32 [dir_dim^3], INT32_MAX between frames); the
+//      atomicMin that finds the entry unclaimed lists the key. A tile with
+//      a valid pixel is listed for the integrate pass (one atomic a warp).
+//      It counts misses, oob samples, listed tiles and claimed blocks in a
+//      four-int status, which nobody reads on the host; the oob count also
+//      goes straight into the grid's `oob_samples`.
+//   2. fuse_integrate: ONE cooperative launch.
+//      Phase 0, only when the status counts claimed blocks (grid-uniform:
+//      the previous launch wrote it). A warp a listed block: its winner is
+//      the id in its claims entry, and its rank among the winners in
+//      candidate order is the number of listed blocks whose winner's id is
+//      lower, so winner r takes slot num_active + r: the JAX package's
+//      `insert_new` order, with no sort. It writes the directory, coarse
+//      occupancy and block coordinates, or sets `overflow` past the
+//      capacity. grid.sync(); one thread stores the new block count, and
+//      the claims entries go back to INT32_MAX.
+//      Phase A: a unit of work is a listed tile's samples k .. k + 3; the
+//      warps take the units in turn, walk again, look up (after the claim:
+//      through the L2; four lookups in flight) and add (w, w * trunc(sdf),
+//      w * R n) into the voxel's 32-byte accumulator row: the lanes merge
+//      equal rows in five fixed shuffle steps (`warp_merge`) and each
+//      remaining lane sends warp_scatter.cuh's vector reduction, marking
+//      the block slot. A sample whose block the claim pass found missing
+//      (now new, or dropped past the capacity) clears its candidate mark.
+//      grid.sync().
+//      Phase B: each CTA reads its share of the block marks in one load a
+//      thread, then merges and clears the marked blocks' rows with
 //      merge_clear.cu's arithmetic, ORs the keyframe bit into `vis` for
 //      every row that received a sample, and clears the marks. Rows of an
 //      unmarked block have an all-zero accumulator, so the accumulator is
 //      all-zero on exit.
 //
 // What bounds it on an H100: neither bytes nor operations. A golden frame
-// needs ~5 MB of the frame's images and a few MB of accumulator traffic
-// (~2 us at 3.35 TB/s); the plain walk it replaces ran ~300 small kernels
-// and three host syncs for ~1 ms of device work. The design removes the
-// launches and syncs: two launches and one 8-byte status read a frame. A
-// grid-wide barrier needs every CTA resident: the integrate kernel runs
-// only through cudaLaunchCooperativeKernel with the grid the card can hold
-// (occupancy x SMs), and refuses to launch otherwise.
+// needs ~9 MB of the frame's images and a few MB of accumulator traffic
+// (~3 us at 3.35 TB/s). Taken apart by one-switch builds (PERF.md;
+// tools/fusion_bench.py --kernels), the earlier design's integrate launch spent nothing measurable on its L2 reductions;
+// its phase B (a dependent scan over every active block) and its barrier
+// took as long as its walk, and its block claim ran on the host. This
+// design hands out the claimed blocks from their list (no scan of the
+// candidates, no sort, one extra barrier), merges only the marked blocks
+// after one load a thread, and walks only the listed tiles, spread over
+// every warp; it does not pre-aggregate the reductions in shared memory.
+// The walk is latency-bound: a unit waits for its tile's images, then its
+// lookups, then its merges. A grid-wide barrier needs every CTA resident:
+// the integrate kernel runs only through cudaLaunchCooperativeKernel with
+// the grid the card can hold (occupancy x SMs), and refuses to launch
+// otherwise.
 //
 // Bits: the keys, and so the claim order and every slot id, must equal the
 // plain version's on the card bit for bit. The source is built with
@@ -52,6 +75,7 @@
 // and 1 - sdf * (1/T) with 1/T rounded to float32 once, which is what
 // PyTorch on the card does for a division by a Python number.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,6 +87,16 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// a warp's pixel tile, lane l at (l % 8, l / 8); the tiles are numbered in
+// 32 x 32 super tiles (4 x 8 tiles, row by row), the super tiles row by row
+constexpr int kTileW = 8, kTileH = 4, kSuperW = 4, kSuperH = 8;
+// samples of a ray walked, and their lookups issued, together (the claim
+// pass, the integrate pass)
+constexpr int kClaimAhead = 2, kAhead = 4;
+constexpr int kCoarse = 4;   // blocks per coarse occupancy cell edge
+// the status: misses, oob samples, tiles with a valid pixel, claimed blocks
+constexpr int kStatus = 4;
 
 // The arguments, as the wrapper hands them over: every field is 8 bytes,
 // so a ctypes structure of c_void_p / c_int64 / c_double in this order has
@@ -75,10 +109,18 @@ struct FuseArgs {
   const void* n_sq_inv;    // f32 [H, W]: 1 / |(x0, y0, 1)|^2
   const void* R;           // f32 [3, 3] on the device
   const void* t;           // f32 [3]
-  const void* directory;   // int32 [dir_dim^3]
-  void* cand_mark;         // uint8 [H * W * K], all-zero (claim)
-  void* cand_keys;         // int32 [H * W * K] (claim)
-  void* status;            // int32 [2]: misses, oob (claim)
+  void* directory;         // int32 [dir_dim^3]
+  void* coarse_occ;        // int32 [(dir_dim / 4)^3]
+  void* block_coords;      // int32 [num_blocks, 3]
+  void* num_active;        // int32 []
+  void* overflow;          // bool []
+  void* oob_samples;       // int32 []
+  void* claims;            // int32 [dir_dim^3], INT32_MAX between frames
+  void* cand_mark;         // uint8 [H * W * K], all-zero between frames
+  void* cand_keys;         // int32 [H * W * K]
+  void* tiles;             // int32: the warp tiles with a valid pixel
+  void* new_keys;          // int32: the keys the claim pass claimed
+  void* status;            // int32 [kStatus]
   void* acc;               // f32 [num_blocks * B^3, 8] (integrate)
   void* weight;            // f32 [num_blocks, B^3] each
   void* dist;
@@ -86,7 +128,6 @@ struct FuseArgs {
   void* grad_y;
   void* grad_z;
   void* marks;             // int32 [num_blocks], zero between frames
-  const void* num_active;  // int32 []
   void* vis;               // int32 [num_blocks, B^3, vis_words], or null
   int64_t height, width, factor, dir_dim, block_shape, stride, cosine;
   int64_t num_blocks, vis_words, kf_word, kf_bit;
@@ -102,19 +143,26 @@ struct Params {
   const float* n_sq_inv;
   const float* R;
   const float* t;
-  const int32_t* directory;
+  int32_t* directory;
+  int32_t* coarse_occ;
+  int32_t* block_coords;
+  int32_t* num_active;
+  uint8_t* overflow;
+  int32_t* oob_samples;
+  int32_t* claims;
   uint8_t* cand_mark;
   int32_t* cand_keys;
+  int32_t* tiles;
+  int32_t* new_keys;
   int32_t* status;
   float* acc;
   float* weight;
   float* dist;
   float* grad[3];
   int32_t* marks;
-  const int32_t* num_active;
   int32_t* vis;
-  int64_t n_pix;
-  int32_t width, factor, dir_dim, block_shape, vpb, stride, cosine;
+  int32_t height, width, supers_x, n_tiles, factor, dir_dim, block_shape,
+      vpb, stride, cosine;
   int32_t vis_words, kf_word;
   uint32_t kf_mask;
   int64_t num_blocks;
@@ -131,9 +179,17 @@ Params unpack(const FuseArgs& a) {
   p.n_sq_inv = static_cast<const float*>(a.n_sq_inv);
   p.R = static_cast<const float*>(a.R);
   p.t = static_cast<const float*>(a.t);
-  p.directory = static_cast<const int32_t*>(a.directory);
+  p.directory = static_cast<int32_t*>(a.directory);
+  p.coarse_occ = static_cast<int32_t*>(a.coarse_occ);
+  p.block_coords = static_cast<int32_t*>(a.block_coords);
+  p.num_active = static_cast<int32_t*>(a.num_active);
+  p.overflow = static_cast<uint8_t*>(a.overflow);
+  p.oob_samples = static_cast<int32_t*>(a.oob_samples);
+  p.claims = static_cast<int32_t*>(a.claims);
   p.cand_mark = static_cast<uint8_t*>(a.cand_mark);
   p.cand_keys = static_cast<int32_t*>(a.cand_keys);
+  p.tiles = static_cast<int32_t*>(a.tiles);
+  p.new_keys = static_cast<int32_t*>(a.new_keys);
   p.status = static_cast<int32_t*>(a.status);
   p.acc = static_cast<float*>(a.acc);
   p.weight = static_cast<float*>(a.weight);
@@ -142,10 +198,12 @@ Params unpack(const FuseArgs& a) {
   p.grad[1] = static_cast<float*>(a.grad_y);
   p.grad[2] = static_cast<float*>(a.grad_z);
   p.marks = static_cast<int32_t*>(a.marks);
-  p.num_active = static_cast<const int32_t*>(a.num_active);
   p.vis = static_cast<int32_t*>(a.vis);
-  p.n_pix = a.height * a.width;
+  p.height = static_cast<int32_t>(a.height);
   p.width = static_cast<int32_t>(a.width);
+  const int32_t sw = kTileW * kSuperW, sh = kTileH * kSuperH;
+  p.supers_x = (p.width + sw - 1) / sw;
+  p.n_tiles = p.supers_x * ((p.height + sh - 1) / sh) * kSuperW * kSuperH;
   p.factor = static_cast<int32_t>(a.factor);
   p.dir_dim = static_cast<int32_t>(a.dir_dim);
   p.block_shape = static_cast<int32_t>(a.block_shape);
@@ -183,6 +241,20 @@ __device__ __forceinline__ void load_pose(const Params& p, Pose& q) {
   __syncthreads();
 }
 
+// The pixel of `lane` in warp tile `w` (module note); false outside the
+// image.
+__device__ __forceinline__ bool tile_pixel(const Params& p, int32_t w,
+                                           int lane, int32_t& pix) {
+  const int32_t s = w / (kSuperW * kSuperH);
+  const int32_t in = w - s * (kSuperW * kSuperH);
+  const int32_t sy = s / p.supers_x;
+  const int32_t x = ((s - sy * p.supers_x) * kSuperW + in % kSuperW) * kTileW +
+                    lane % kTileW;
+  const int32_t y = (sy * kSuperH + in / kSuperW) * kTileH + lane / kTileW;
+  pix = y * p.width + x;
+  return w < p.n_tiles && x < p.width && y < p.height;
+}
+
 // One pixel's ray (fusion._pixel_rays, then the per-ray part of
 // _ray_samples), in the plain version's order of operations.
 struct Ray {
@@ -194,7 +266,6 @@ struct Ray {
 
 __device__ __forceinline__ bool pixel_ray(const Params& p, const Pose& q,
                                           int32_t pix, Ray& r) {
-  if (pix >= p.n_pix) return false;
   const float z = __ldg(p.depth + pix);
   const float* n = p.normals + 3 * static_cast<int64_t>(pix);
   const float nx = __ldg(n);
@@ -281,38 +352,149 @@ __device__ __forceinline__ Sample walk(const Params& p, const Pose& q,
   return s;
 }
 
+// Partial warp aggregation in fixed steps, for rows that lanes of one
+// tile share: at step s (1, 2, 4, 8, 16) a lane whose bit s is clear takes
+// the sums of lane + s when both still hold the same destination, and
+// lane + s drops it. A destination that fills an aligned block of lanes
+// (2 x 1, 4 x 1, 8 x 1, 8 x 2 or 8 x 4 pixels of the tile) ends in one
+// lane; one that straddles blocks in a few. Called by all 32 lanes; `i` is
+// the lane's destination row, -1 for nothing to add. Returns true in each
+// lane that still holds a destination; its `x` then holds its sums. Five
+// steps of F + 2 shuffles: cheaper, measured, than the group-by-group
+// shuffle loop of warp_scatter.cuh's warp_aggregate, whose turns grow with
+// the lanes a row has (up to 16 in a tile).
+template <int F>
+__device__ __forceinline__ bool warp_merge(int32_t& i, float (&x)[F]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int step = 1; step < 32; step <<= 1) {
+    const int32_t up = __shfl_down_sync(gsdf::kFullMask, i, step);
+    const int32_t down = __shfl_up_sync(gsdf::kFullMask, i, step);
+    const bool take = (lane & step) == 0 && i >= 0 && up == i;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float y = __shfl_down_sync(gsdf::kFullMask, x[f], step);
+      if (take) x[f] += y;
+    }
+    if ((lane & step) != 0 && i >= 0 && down == i) i = -1;
+  }
+  return i >= 0;
+}
+
 __global__ void __launch_bounds__(kThreads) fuse_claim(Params p) {
-  const int32_t pix = blockIdx.x * kThreads + threadIdx.x;
   __shared__ Pose q;
   load_pose(p, q);
+  const int lane = threadIdx.x & 31;
+  // a CTA's warps take tiles spread over the image, so that a patch of
+  // valid pixels lands on many CTAs and SMs
+  const int32_t w = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  int32_t pix;
+  const bool inside = tile_pixel(p, w, lane, pix);
   Ray r;
-  const bool valid = pixel_ray(p, q, pix, r);
+  const bool valid = inside && pixel_ray(p, q, pix, r);
+  // a tile with a valid pixel is listed for the integrate pass; the
+  // atomic's answer is waited for only at the end
+  const bool listed = __any_sync(gsdf::kFullMask, valid);
+  int32_t at = 0;
+  if (listed && lane == 0) at = atomicAdd(p.status + 2, 1);
   int32_t oob = 0;
   int32_t misses = 0;
-  if (pix < p.n_pix) {
-    const int64_t c0 =
-        static_cast<int64_t>(pix) * (2 * p.factor + 1) + p.factor;
-    for (int k = -p.factor; valid && k <= p.factor; ++k) {
-      const Sample s = walk(p, q, r, k);
-      if (!(s.w > 0.0f)) continue;
-      if (s.key < 0) {
-        ++oob;
-      } else if (__ldg(p.directory + s.key) < 0) {
-        p.cand_mark[c0 + k] = 1;
-        p.cand_keys[c0 + k] = s.key;
-        ++misses;
+  if (listed) {
+    const int32_t c0 = valid ? pix * (2 * p.factor + 1) + p.factor : 0;
+    for (int k0 = -p.factor; k0 <= p.factor; k0 += kClaimAhead) {
+      int32_t key[kClaimAhead];
+      int32_t slot[kClaimAhead];
+#pragma unroll
+      for (int j = 0; j < kClaimAhead; ++j) {
+        key[j] = -1;
+        slot[j] = 0;
+        if (valid && k0 + j <= p.factor) {
+          const Sample s = walk(p, q, r, k0 + j);
+          if (s.w > 0.0f) {
+            if (s.key < 0)
+              ++oob;
+            else
+              key[j] = s.key;
+          }
+        }
+        if (key[j] >= 0) slot[j] = __ldg(p.directory + key[j]);
       }
+      // the lanes that miss one block claim it once, with their lowest
+      // id: claim[j] is the block this lane claims for step j, lo[j] the id
+      int32_t claim[kClaimAhead];
+      int32_t lo[kClaimAhead];
+#pragma unroll
+      for (int j = 0; j < kClaimAhead; ++j) {
+        claim[j] = -1;
+        // a live sample whose block is missing
+        const int32_t miss = slot[j] < 0 ? key[j] : -1;
+        if (!__any_sync(gsdf::kFullMask, miss >= 0)) continue;
+        const int32_t c = c0 + k0 + j;
+        if (miss >= 0) {
+          p.cand_mark[c] = 1;
+          p.cand_keys[c] = miss;
+          ++misses;
+        }
+        const unsigned peers = __match_any_sync(gsdf::kFullMask, miss);
+        lo[j] = __reduce_min_sync(peers, miss >= 0 ? c : INT_MAX);
+        if (miss >= 0 && lane == __ffs(peers) - 1) claim[j] = miss;
+      }
+      // the claims go out together; the one that finds its block unclaimed
+      // lists the key
+      int32_t old[kClaimAhead];
+#pragma unroll
+      for (int j = 0; j < kClaimAhead; ++j)
+        old[j] = claim[j] >= 0 ? atomicMin(p.claims + claim[j], lo[j]) : 0;
+#pragma unroll
+      for (int j = 0; j < kClaimAhead; ++j)
+        if (claim[j] >= 0 && old[j] == INT_MAX)
+          p.new_keys[atomicAdd(p.status + 3, 1)] = claim[j];
     }
   }
-  // every lane of the warp exists (the grid covers whole blocks)
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    oob += __shfl_down_sync(gsdf::kFullMask, oob, off);
-    misses += __shfl_down_sync(gsdf::kFullMask, misses, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
+  if (listed && lane == 0) p.tiles[at] = w;
+  misses = __reduce_add_sync(gsdf::kFullMask, misses);
+  oob = __reduce_add_sync(gsdf::kFullMask, oob);
+  if (lane == 0) {
     if (misses) atomicAdd(p.status, misses);
-    if (oob) atomicAdd(p.status + 1, oob);
+    if (oob) {
+      atomicAdd(p.status + 1, oob);
+      atomicAdd(p.oob_samples, oob);
+    }
+  }
+}
+
+// Phase 0 (module note): each claimed block's winner, the lowest
+// candidate id in its claims entry, takes slot na + its rank among the
+// winners in candidate order, or sets `overflow` past the capacity. A warp
+// a block: its lanes count the winners with a lower id. Every thread of the
+// grid calls it; `na` is the block count before the frame.
+__device__ void hand_out(const Params& p, int32_t n_new, int32_t na) {
+  const int lane = threadIdx.x & 31;
+  const int32_t warps = gridDim.x * kWarps;
+  const int32_t D = p.dir_dim;
+  const int32_t C = D / kCoarse;
+  const int32_t half = D / 2;
+  for (int32_t i = blockIdx.x * kWarps + (threadIdx.x >> 5); i < n_new;
+       i += warps) {
+    const int32_t key = __ldcg(p.new_keys + i);
+    const int32_t c = __ldcg(p.claims + key);
+    int32_t rank = 0;
+    for (int32_t j = lane; j < n_new; j += 32)
+      rank += __ldcg(p.claims + __ldcg(p.new_keys + j)) < c;
+    const int64_t slot =
+        na + static_cast<int64_t>(__reduce_add_sync(gsdf::kFullMask, rank));
+    if (lane == 0 && slot >= p.num_blocks) *p.overflow = 1;
+    if (lane == 0 && slot < p.num_blocks) {
+      const int32_t kz = key % D;
+      const int32_t ky = (key / D) % D;
+      const int32_t kx = key / (D * D);
+      p.directory[key] = static_cast<int32_t>(slot);
+      p.coarse_occ[((kx / kCoarse) * C + ky / kCoarse) * C + kz / kCoarse] = 1;
+      int32_t* bc = p.block_coords + 3 * slot;
+      bc[0] = kx - half;
+      bc[1] = ky - half;
+      bc[2] = kz - half;
+    }
   }
 }
 
@@ -345,66 +527,112 @@ __device__ __forceinline__ void merge_block(const Params& p, int64_t b) {
   }
 }
 
-// At least 2 CTAs an SM: with the thread count alone as a bound ptxas
-// spilled 4 bytes in both instances (48 and 64 registers); with this one it
-// uses 56 and 72 and spills nothing (sm_90a, nvcc of CUDA 12.8).
+// At least 2 CTAs an SM: with the thread count alone as a bound, ptxas
+// spilled a few bytes of an earlier version.
 template <int F>
 __global__ void __launch_bounds__(kThreads, 2) fuse_integrate(Params p) {
-  // phase A: walk, look up, scatter, mark
+  __shared__ Pose q;
+  __shared__ int32_t list[kThreads];
+  __shared__ int32_t n_list;
+  cg::grid_group grid = cg::this_grid();
+  // grid-uniform, and read before any thread writes them: the claim
+  // pass's listed tiles and claimed blocks, the block count before
+  const int32_t n_tiles = __ldcg(p.status + 2);
+  const int32_t n_new = __ldcg(p.status + 3);
+  const int32_t na = __ldcg(p.num_active);
+  load_pose(p, q);
+  int64_t active = na < p.num_blocks ? na : p.num_blocks;
+  if (n_new > 0) {
+    // phase 0: the frame's new blocks get their slots
+    hand_out(p, n_new, na);
+    const int64_t room = p.num_blocks > na ? p.num_blocks - na : 0;
+    active = na + (n_new < room ? n_new : room);
+    grid.sync();
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      *p.num_active = static_cast<int32_t>(active);
+    for (int32_t i = blockIdx.x * kThreads + threadIdx.x; i < n_new;
+         i += gridDim.x * kThreads)
+      p.claims[__ldcg(p.new_keys + i)] = INT_MAX;
+  }
+
+  // phase A: walk the valid pixels, look up, scatter, mark. A unit of work
+  // is a listed tile's samples k0 .. k0 + kAhead - 1.
   {
-    __shared__ Pose q;
-    load_pose(p, q);
-    const int32_t stride = gridDim.x * kThreads;
-    // whole warps stay in the loop (block size and stride are multiples of
-    // 32), so every warp-wide step has all 32 lanes
-    const int32_t n_up = (static_cast<int32_t>(p.n_pix) + 31) & ~31;
-    for (int32_t pix = blockIdx.x * kThreads + threadIdx.x; pix < n_up;
-         pix += stride) {
+    const int lane = threadIdx.x & 31;
+    const int32_t steps = (2 * p.factor + kAhead) / kAhead;
+    const int32_t units = n_tiles * steps;
+    for (int32_t u = blockIdx.x * kWarps + (threadIdx.x >> 5); u < units;
+         u += gridDim.x * kWarps) {
+      const int k0 = -p.factor + (u % steps) * kAhead;
+      int32_t pix;
       Ray r;
-      const bool valid = pixel_ray(p, q, pix, r);
-      if (!__any_sync(gsdf::kFullMask, valid)) continue;
-      for (int k = -p.factor; k <= p.factor; ++k) {
-        int32_t i = -1;    // the voxel's accumulator row; -1: nothing to add
-        int32_t slot = -1;
+      const bool valid = tile_pixel(p, __ldcg(p.tiles + u / steps), lane, pix) &&
+                         pixel_ray(p, q, pix, r);
+      Sample s[kAhead];
+      int32_t slot[kAhead];
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        slot[j] = -1;
+        s[j].key = -1;   // -1: no live sample in the directory's range
+        if (valid && k0 + j <= p.factor) {
+          s[j] = walk(p, q, r, k0 + j);
+          if (!(s[j].w > 0.0f)) s[j].key = -1;
+          // phase 0 wrote the directory in this launch: read it through the
+          // L2
+          if (s[j].key >= 0)
+            slot[j] = n_new > 0 ? __ldcg(p.directory + s[j].key)
+                                : __ldg(p.directory + s[j].key);
+        }
+      }
+      // a sample whose block the claim pass found missing (new, or dropped
+      // past the capacity): its mark goes back to 0. After every lookup is
+      // issued: a byte store may alias the directory for the compiler.
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j)
+        if (n_new > 0 && s[j].key >= 0 && (slot[j] < 0 || slot[j] >= na))
+          p.cand_mark[pix * (2 * p.factor + 1) + p.factor + k0 + j] = 0;
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        int32_t i = -1;   // the voxel's accumulator row; -1: nothing to add
         float x[F];
 #pragma unroll
         for (int f = 0; f < F; ++f) x[f] = 0.0f;
-        if (valid) {
-          const Sample s = walk(p, q, r, k);
-          if (s.w > 0.0f && s.key >= 0) {
-            slot = __ldg(p.directory + s.key);
-            if (slot >= 0) {
-              i = slot * p.vpb + s.local;
-              x[0] = s.w;
-              x[1] = s.wd;
-              if constexpr (F == 5) {
-                x[2] = s.w * r.rn[0];
-                x[3] = s.w * r.rn[1];
-                x[4] = s.w * r.rn[2];
-              }
-            }
+        if (slot[j] >= 0) {
+          i = slot[j] * p.vpb + s[j].local;
+          x[0] = s[j].w;
+          x[1] = s[j].wd;
+          if constexpr (F == 5) {
+            x[2] = s[j].w * r.rn[0];
+            x[3] = s[j].w * r.rn[1];
+            x[4] = s[j].w * r.rn[2];
           }
         }
-        if (gsdf::warp_aggregate<F>(i, x)) {
+        if (warp_merge<F>(i, x)) {
           gsdf::reduce_row<F, true>(p.acc + static_cast<int64_t>(i) * 8, x);
-          // a stale read only costs a second store of the same 1
-          if (p.marks[slot] == 0) p.marks[slot] = 1;
+          p.marks[slot[j]] = 1;   // a store: waiting for a read costs more
         }
       }
     }
   }
   // every reduction and mark of phase A is in memory past this barrier;
   // phase B reads the accumulator and the marks through the L2 (__ldcg)
-  cg::this_grid().sync();
-  int64_t active = __ldcg(p.num_active);
-  if (active > p.num_blocks) active = p.num_blocks;
-  for (int64_t b = blockIdx.x; b < active; b += gridDim.x) {
-    // the same value in every thread of the CTA: only this CTA writes it,
-    // after the barrier below
-    if (__ldcg(p.marks + b) == 0) continue;
-    merge_block<F == 5>(p, b);
+  grid.sync();
+
+  // phase B: this CTA's share of the blocks (b = blockIdx.x mod gridDim.x),
+  // a block mark a thread, the marked ones merged one after another
+  const int64_t span = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t base = 0; base < active; base += span) {
+    if (threadIdx.x == 0) n_list = 0;
     __syncthreads();
-    if (threadIdx.x == 0) p.marks[b] = 0;
+    const int64_t b =
+        base + static_cast<int64_t>(threadIdx.x) * gridDim.x + blockIdx.x;
+    if (b < active && __ldcg(p.marks + b) != 0)
+      list[atomicAdd(&n_list, 1)] = static_cast<int32_t>(b);
+    __syncthreads();
+    const int32_t n = n_list;
+    for (int32_t j = 0; j < n; ++j) merge_block<F == 5>(p, list[j]);
+    if (threadIdx.x < n) p.marks[list[threadIdx.x]] = 0;
+    __syncthreads();
   }
 }
 
@@ -446,15 +674,15 @@ int shape_of(int nf, Shape& out) {
 // C entry points (bound with ctypes). Each launches on `stream`, does not
 // synchronize, and returns the CUDA error of its launch (0 = success).
 
-// The claim pass: zeroes the status, then one thread per pixel. `args`
-// points to a FuseArgs.
+// The claim pass: zeroes the status, then a warp per 8 x 4 pixel tile.
+// `args` points to a FuseArgs.
 extern "C" int gsdf_fuse_claim_f32(const void* args, void* stream) {
   const Params p = unpack(*static_cast<const FuseArgs*>(args));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(p.status, 0, 2 * sizeof(int32_t), s);
+  cudaError_t e = cudaMemsetAsync(p.status, 0, kStatus * sizeof(int32_t), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (p.n_pix <= 0) return 0;
-  const int64_t blocks = (p.n_pix + kThreads - 1) / kThreads;
+  if (p.n_tiles <= 0) return 0;
+  const int64_t blocks = (p.n_tiles + kWarps - 1) / kWarps;
   fuse_claim<<<dim3(static_cast<unsigned>(blocks)), kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -480,14 +708,15 @@ extern "C" int gsdf_fuse_integrate_f32(const void* args, int nf,
   Shape s;
   int e = shape_of(nf, s);
   if (e != 0) return e;
+  const int ctas = s.ctas_per_sm * s.sms;
   if (s.ctas_per_sm < 1 || !s.coop)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* kargs[] = {&p};
-  const dim3 grid(static_cast<unsigned>(s.ctas_per_sm * s.sms));
   const void* fn = nf == 5 ? reinterpret_cast<const void*>(fuse_integrate<5>)
                            : reinterpret_cast<const void*>(fuse_integrate<2>);
   e = static_cast<int>(cudaLaunchCooperativeKernel(
-      fn, grid, dim3(kThreads), kargs, 0, static_cast<cudaStream_t>(stream)));
+      fn, dim3(static_cast<unsigned>(ctas)), dim3(kThreads), kargs, 0,
+      static_cast<cudaStream_t>(stream)));
   if (e != 0) return e;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// Warp-aggregated row reductions, shared by the scatter kernel
-// (scatter_add.cu) and fusion's integrate pass (fuse_integrate.cu).
+// Warp-aggregated row reductions of the scatter kernel (scatter_add.cu);
+// fusion's integrate pass (fuse_integrate.cu) sends its rows with the same
+// vector reductions (reduce_row).
 //
 // The lanes of a warp that hold the same destination (__match_any_sync) sum
 // their fields by shuffles into the group's lowest lane, taking the peers'

@@ -39,9 +39,10 @@ class GradSdfMap:
         self.device = device_mod.require(device)
         self.grid = vg.create(cfg.grid, self.device)
         # fusion's frame accumulator and its kernel's scratch (block marks,
-        # claim status, candidate buffer): they live as long as the map, the
-        # accumulator and the marks all-zero between frames (fuse_frame
-        # leaves them so); not saved state
+        # claims, status, candidate and tile buffers): they live as long as
+        # the map, the accumulator and the marks all-zero and the claims
+        # INT32_MAX between frames (fuse_frame leaves them so); not saved
+        # state
         self._new_scratch()
         self.counter = 0
         # capacity/world-range growth events, dumped by scan3d --metrics-json

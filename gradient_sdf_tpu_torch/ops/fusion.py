@@ -18,18 +18,17 @@ Port of `gradient_sdf_tpu/ops/fusion.py` (`MapGradPixelSdf::update`,
      only (an untouched row's accumulator is zero).
 
 `fuse_frame` runs steps 2-5 through `ops/kernels/fuse_integrate.py`: on
-the card two launches of its hand-written kernel, the claim pass (gates,
-walk, lookup; it marks the samples whose block is missing and counts them
-and the oob samples) and the integrate-and-merge pass (walk, lookup,
-scatter, merge, visibility bits), with the block claim (`claim_blocks`:
-the marked candidates in order and `voxel_grid.insert_new`, plain PyTorch)
-between them when a frame opens blocks; on the CPU their plain versions.
-Slot order is the JAX package's: the claim's winners are ordered by their
-global (pixel, k) candidate index.
+the card two launches of its hand-written kernel and no host sync, the
+claim pass (gates, walk, lookup; it marks the samples whose block is
+missing, claims each such block for its lowest candidate and lists the
+tiles with a valid pixel) and the integrate-and-merge pass (the block claim's slot
+hand-out, then walk, lookup, scatter, merge, visibility bits); on the CPU
+their plain versions, with the block claim (`claim_blocks`, plain
+PyTorch) between them. Slot order is the JAX package's: the claim's
+winners are ordered by their global (pixel, k) candidate index.
 
-Host syncs per frame on the card: the claim pass's 8-byte status read; on
-a frame that opens blocks, `insert_new`'s masked writes. `GradSdfMap.update`
-adds one for the growth flags.
+Host syncs per frame on the card: none. `GradSdfMap.update` adds one for
+the growth flags.
 
 `frame_samples`, `_alloc_slots`, `_scatter_samples` and
 `_merge_accumulators` are the same steps as plain tensor passes around the
@@ -269,23 +268,14 @@ def _merge_accumulators(grid: vg.VoxelGrid, acc, accumulate_gradients: bool):
 
 
 def claim_blocks(grid: vg.VoxelGrid, mark: torch.Tensor, keys: torch.Tensor,
-                 misses: int, oob: int, gcfg: GridConfig) -> vg.VoxelGrid:
-    """Allocate the blocks of the claim pass's `misses` marked candidates
-    (`mark` uint8, `keys` int32, one entry per candidate): taken in
-    candidate order (`nonzero_static` with the known count: no host sync),
-    they are the frame's missing samples in the JAX package's claim order,
-    and `insert_new` over their keys hands out its slots. Their marks are
-    cleared again (the kernel's buffer is all-zero between frames). Adds
-    the pass's `oob` count to `oob_samples`. No device op for 0 and 0."""
-    if misses:
-        idx = torch.nonzero_static(mark, size=misses).reshape(-1)
-        want = keys[idx]
-        mark.index_fill_(0, idx, 0)
-        grid = vg.insert_new(grid, want, torch.ones_like(idx, dtype=torch.bool),
-                             gcfg)
-    if oob:
-        grid = grid._replace(oob_samples=grid.oob_samples + oob)
-    return grid
+                 oob, gcfg: GridConfig) -> vg.VoxelGrid:
+    """The plain block claim between the CPU's two passes: allocate the
+    blocks of the claim pass's marked candidates (`mark` uint8, `keys`
+    int32, one entry per candidate) in candidate order, the JAX package's
+    claim order, through `fuse_integrate.claim_alloc_reference` (which
+    clears the marks), and add the pass's `oob` count to `oob_samples`."""
+    grid = fi.claim_alloc_reference(grid, mark, keys, gcfg)
+    return grid._replace(oob_samples=grid.oob_samples + oob)
 
 
 def fuse_frame(
@@ -326,8 +316,8 @@ def fuse_frame(
     t = t.to(torch.float32).contiguous()
     status, mark, keys = fi.claim_pass(depth, normal_img, cache, R, t, grid,
                                        gcfg, fcfg, scratch)
-    misses, oob = status.tolist()   # the frame's one host sync
-    grid = claim_blocks(grid, mark, keys, misses, oob, gcfg)
+    if grid.device.type == "cpu":
+        grid = claim_blocks(grid, mark, keys, status[1], gcfg)
     fi.integrate_merge(depth, normal_img, cache, R, t, grid, gcfg, fcfg, acc,
                        scratch, accumulate_gradients=accumulate_gradients,
                        vis=vis, kf_slot=kf_slot)

@@ -1,35 +1,44 @@
 """fuse_integrate: one depth frame's fusion on one card in two launches of
-the hand-written kernel of `csrc/fuse_integrate.cu` (see the note there).
+the hand-written kernel of `csrc/fuse_integrate.cu` (see the note there),
+with no host sync.
 
   * `claim_pass` gates every pixel, walks its K = 2 * floor(T / vs) + 1
-    samples (`fusion._pixel_rays`, `fusion._ray_samples`), looks each live
-    sample's block up in the directory and returns the status, int32 [2]
-    on the device: the number of live samples whose block is missing
-    (misses), and of live samples outside the directory's range (oob); and
-    for every candidate c = pixel * K + k over all pixels of the frame a
-    mark (uint8 [H * W * K], 1 for a miss) and, where marked, the block key
-    (int32 [H * W * K]). `fusion.claim_blocks` takes the marked candidates
-    in candidate order, which is the claim order, allocates their blocks
-    and clears their marks.
-  * `integrate_merge` walks the samples again, looks them up, adds (w,
-    w * trunc(sdf), w * R n) into the map's accumulator, then merges and
-    clears the rows of every touched block (`merge_clear`'s formula, over
-    the touched blocks only) and ORs the keyframe bit into `vis` for every
-    voxel that received a sample. On the card this is ONE cooperative
-    launch (a grid-wide barrier between the two halves).
+    samples (`fusion._pixel_rays`, `fusion._ray_samples`) and looks each
+    live sample's block up in the directory. For every candidate c = pixel
+    * K + k over all pixels of the frame it sets a mark (uint8, 1 for a
+    live sample whose block is missing) and, where marked, the block key
+    (int32). It returns the status, int32 [4] on the device: the misses,
+    the live samples outside the directory's range (oob), the warp tiles
+    with a valid pixel (`tile_of_pixels`) and the missing blocks (claimed
+    blocks). On the card it also claims each missing block for its lowest
+    candidate id (an atomicMin into the scratch's `claims`), lists the
+    claimed blocks' keys and the tiles with a valid pixel for the
+    integrate pass and adds the oob count to the grid's `oob_samples`.
+  * `integrate_merge` hands the claimed blocks their slots in candidate
+    order (the JAX package's `insert_new` order), walks the samples again,
+    looks them up, adds (w, w * trunc(sdf), w * R n) into the map's
+    accumulator, then merges and clears the rows of every touched block
+    (`merge_clear`'s formula, over the touched blocks only) and ORs the
+    keyframe bit into `vis` for every voxel that received a sample. On the
+    card this is ONE cooperative launch (grid-wide barriers between its
+    phases); the grid's directory, coarse occupancy, block coordinates,
+    block count and overflow flag are updated in place.
 
 On a CUDA tensor the wrappers launch the kernel or raise; they never fall
 back. On a CPU tensor they take the plain versions, `claim_pass_reference`
-and `integrate_merge_reference`, which are also what the kernel is checked
-against on the card. The plain versions compact the valid pixels (a host
-sync that the kernel does not make) and walk them with `fusion._ray_samples`
-itself; the candidate ids are the same.
+and `integrate_merge_reference`; the block claim between them is then
+`claim_alloc_reference` (through `fusion.claim_blocks`). These three are
+also what the kernel is checked against on the card. The plain versions
+compact the valid pixels (a host sync that the kernel does not make) and
+walk them with `fusion._ray_samples` itself; the candidate ids are the
+same.
 
 The kernel's scratch lives in a `FuseScratch` (`new_scratch(grid)`) that
 `GradSdfMap` owns beside its accumulator: the block marks (all-zero between
-frames), the status and the candidates' marks (all-zero between frames:
-`fusion.claim_blocks` clears the ones it takes) and keys, grown to a
-frame's H * W * K. The accumulator is all-zero on entry and on exit.
+frames), the claims (INT32_MAX between frames), the status, the
+candidates' marks (all-zero between frames: the integrate pass clears
+them) and keys, and the lists of claimed keys and of tiles with a valid
+pixel. The accumulator is all-zero on entry and on exit.
 """
 
 from __future__ import annotations
@@ -44,7 +53,11 @@ from ...config import FusionConfig, GridConfig
 from .. import voxel_grid as vg
 from .scatter_add import ACC_ROW
 
-STATUS = 2   # int32: misses, oob
+STATUS = 4   # int32: misses, oob, tiles with a valid pixel, claimed blocks
+# csrc/fuse_integrate.cu's pixel layout: a warp takes an 8 x 4 pixel tile;
+# the tiles are numbered in 32 x 32 pixel super tiles of 4 x 8 tiles, row by
+# row, and the super tiles row by row over the image
+TILE_W, TILE_H, SUPER_W, SUPER_H = 8, 4, 4, 8
 
 # launches since the last reset_launch_count(), the integrate-and-merge
 # launch and the claim launch; the CPU path and the plain versions do not
@@ -61,28 +74,41 @@ def reset_launch_count():
 
 
 class FuseScratch:
-    """The kernels' scratch for a grid of `num_blocks` blocks on `device`:
-    `marks` int32 [num_blocks] and the candidates' `cand_mark` uint8 (both
-    all-zero between frames), `status` int32 [STATUS], the candidates'
-    `cand_keys` int32 (`cand_*` grown by `candidates(n)`)."""
+    """The kernels' scratch for a grid of `num_blocks` blocks and a
+    directory of `dir_size` entries on `device`: `marks` int32 [num_blocks]
+    (all-zero between frames), `claims` int32 [dir_size] (INT32_MAX between
+    frames), `status` int32 [STATUS]; and, grown by
+    `candidates(n, n_tiles)`, the candidates' `cand_mark` uint8 (all-zero
+    between frames) and `cand_keys` int32, the claimed keys' list
+    `new_keys` int32 and the list of tiles with a valid pixel `tiles`
+    int32."""
 
-    def __init__(self, num_blocks: int, device):
-        self.marks = torch.zeros(num_blocks, dtype=torch.int32, device=device)
-        self.status = torch.zeros(STATUS, dtype=torch.int32, device=device)
+    def __init__(self, num_blocks: int, dir_size: int, device):
+        i32 = dict(dtype=torch.int32, device=device)
+        self.marks = torch.zeros(num_blocks, **i32)
+        self.claims = torch.full((dir_size,), vg.INT32_MAX, **i32)
+        self.status = torch.zeros(STATUS, **i32)
         self.cand_mark = torch.zeros(0, dtype=torch.uint8, device=device)
-        self.cand_keys = torch.empty(0, dtype=torch.int32, device=device)
+        self.cand_keys = torch.empty(0, **i32)
+        self.new_keys = torch.empty(0, **i32)
+        self.tiles = torch.empty(0, **i32)
 
-    def candidates(self, n: int):
-        """(mark, keys) of `n` candidates."""
+    def candidates(self, n: int, n_tiles: int):
+        """(mark, keys) of `n` candidates, with room for `n_tiles` tiles and
+        as many claimed keys as a frame can list."""
+        dev = self.marks.device
         if self.cand_mark.numel() < n:
-            dev = self.marks.device
             self.cand_mark = torch.zeros(n, dtype=torch.uint8, device=dev)
             self.cand_keys = torch.empty(n, dtype=torch.int32, device=dev)
+            self.new_keys = torch.empty(min(n, self.claims.numel()),
+                                        dtype=torch.int32, device=dev)
+        if self.tiles.numel() < n_tiles:
+            self.tiles = torch.empty(n_tiles, dtype=torch.int32, device=dev)
         return self.cand_mark[:n], self.cand_keys[:n]
 
 
 def new_scratch(grid: vg.VoxelGrid) -> FuseScratch:
-    return FuseScratch(grid.num_blocks, grid.device)
+    return FuseScratch(grid.num_blocks, grid.directory.numel(), grid.device)
 
 
 class FuseArgs(ctypes.Structure):
@@ -90,8 +116,10 @@ class FuseArgs(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "depth", "normals", "x0", "y0", "n_sq_inv", "R", "t", "directory",
-        "cand_mark", "cand_keys", "status", "acc", "weight", "dist", "grad_x",
-        "grad_y", "grad_z", "marks", "num_active", "vis")]
+        "coarse_occ", "block_coords", "num_active", "overflow", "oob_samples",
+        "claims", "cand_mark", "cand_keys", "tiles", "new_keys", "status",
+        "acc", "weight", "dist", "grad_x", "grad_y", "grad_z", "marks",
+        "vis")]
         + [(n, ctypes.c_int64) for n in (
             "height", "width", "factor", "dir_dim", "block_shape", "stride",
             "cosine", "num_blocks", "vis_words", "kf_word", "kf_bit")]
@@ -116,6 +144,21 @@ def walk_constants(gcfg: GridConfig, fcfg: FusionConfig) -> dict:
 
 def samples_per_ray(fcfg: FusionConfig) -> int:
     return 2 * int(fcfg.trunc_voxels) + 1
+
+
+def tile_count(height: int, width: int) -> int:
+    """The warp tiles of a height x width frame (whole super tiles)."""
+    sw, sh = TILE_W * SUPER_W, TILE_H * SUPER_H
+    return -(-width // sw) * -(-height // sh) * SUPER_W * SUPER_H
+
+
+def tile_of_pixels(pix: torch.Tensor, width: int) -> torch.Tensor:
+    """The warp tile of each pixel index (the kernel's numbering)."""
+    x, y = pix % width, torch.div(pix, width, rounding_mode="floor")
+    wx, wy = x // TILE_W, y // TILE_H
+    supers_x = -(-width // (TILE_W * SUPER_W))
+    return (((wy // SUPER_H) * supers_x + wx // SUPER_W) * SUPER_W * SUPER_H
+            + (wy % SUPER_H) * SUPER_W + wx % SUPER_W)
 
 
 def _check(depth, normals, cache, R, t, grid, gcfg):
@@ -154,17 +197,39 @@ def _config_args(gcfg: GridConfig, fcfg: FusionConfig) -> tuple:
         **{k: float(v) for k, v in walk_constants(gcfg, fcfg).items()}).items())
 
 
-def _args(depth, normals, cache, R, t, grid, gcfg, fcfg, **kw) -> FuseArgs:
+def _args(depth, normals, cache, R, t, grid, gcfg, fcfg, scratch,
+          **kw) -> FuseArgs:
+    ptr = {name: getattr(grid, name).data_ptr() for name in (
+        "directory", "coarse_occ", "block_coords", "num_active", "overflow",
+        "oob_samples")}
+    ptr.update({name: getattr(scratch, name).data_ptr() for name in (
+        "claims", "cand_mark", "cand_keys", "tiles", "new_keys", "status")})
     a = FuseArgs(
         depth=depth.data_ptr(), normals=normals.data_ptr(),
         x0=cache.x0.data_ptr(), y0=cache.y0.data_ptr(),
         n_sq_inv=cache.n_sq_inv.data_ptr(), R=R.data_ptr(), t=t.data_ptr(),
-        directory=grid.directory.data_ptr(), height=depth.shape[0],
-        width=depth.shape[1], num_blocks=grid.num_blocks,
-        **dict(_config_args(gcfg, fcfg)))
+        height=depth.shape[0], width=depth.shape[1],
+        num_blocks=grid.num_blocks, **ptr, **dict(_config_args(gcfg, fcfg)))
     for k, v in kw.items():
         setattr(a, k, v)
     return a
+
+
+def _check_scratch(scratch, grid, depth, fcfg):
+    """The card's passes need a FuseScratch of the grid's geometry, grown
+    to this frame."""
+    if scratch is None or scratch.marks.shape != (grid.num_blocks,) or (
+            scratch.claims.numel() != grid.directory.numel()):
+        raise ValueError("the card's fusion passes need a FuseScratch of the "
+                         "grid's block count and directory")
+    for name in ("num_active", "oob_samples"):
+        a = getattr(grid, name)
+        if a.dtype != torch.int32 or a.dim() != 0:
+            raise ValueError(f"grid.{name} must be an int32 scalar")
+    if grid.overflow.dtype != torch.bool or grid.overflow.dim() != 0:
+        raise ValueError("grid.overflow must be a bool scalar")
+    n = _check_samples(depth, fcfg)
+    return scratch.candidates(n, tile_count(*depth.shape))
 
 
 def _stream(dev):
@@ -177,10 +242,11 @@ def claim_pass(depth: torch.Tensor, normals: torch.Tensor, cache, R, t,
     """The claim pass (module note) over a frame: depth f32 [H, W], its
     FALS normals f32 [H, W, 3], the camera cache of `ops/normals`, the pose
     (R f32 [3, 3], t f32 [3], camera-to-world) and the grid. Returns
-    (status int32 [2], mark uint8 [H * W * K], keys int32 [H * W * K]). On
-    CUDA the kernel launches on the current stream without synchronizing;
-    `scratch` (`new_scratch(grid)`) is then required and holds the
-    outputs."""
+    (status int32 [STATUS], mark uint8 [H * W * K], keys int32 [H * W * K]).
+    On CUDA the kernel launches on the current stream without
+    synchronizing; `scratch` (`new_scratch(grid)`) is then required and
+    holds the outputs, its `claims` the frame's claims, and the grid's
+    `oob_samples` grows by the oob count."""
     _check(depth, normals, cache, R, t, grid, gcfg)
     dev = depth.device
     if dev.type == "cpu":
@@ -188,16 +254,11 @@ def claim_pass(depth: torch.Tensor, normals: torch.Tensor, cache, R, t,
                                     fcfg)
     if dev.type != "cuda":
         raise RuntimeError(f"fuse_integrate: no kernel for {dev}")
-    n = _check_samples(depth, fcfg)
-    if scratch is None:
-        raise ValueError("the card's claim pass needs a FuseScratch")
+    mark, keys = _check_scratch(scratch, grid, depth, fcfg)
     from . import _build
 
     lib = _build.load()
-    mark, keys = scratch.candidates(n)
-    a = _args(depth, normals, cache, R, t, grid, gcfg, fcfg,
-              cand_mark=mark.data_ptr(), cand_keys=keys.data_ptr(),
-              status=scratch.status.data_ptr())
+    a = _args(depth, normals, cache, R, t, grid, gcfg, fcfg, scratch)
     global claim_launch_count
     with torch.cuda.device(dev):
         rc = lib.gsdf_fuse_claim_f32(ctypes.byref(a), _stream(dev))
@@ -239,13 +300,16 @@ def integrate_merge(depth: torch.Tensor, normals: torch.Tensor, cache, R, t,
                     grid: vg.VoxelGrid, gcfg: GridConfig, fcfg: FusionConfig,
                     acc: torch.Tensor, scratch: FuseScratch = None, *,
                     accumulate_gradients: bool = True, vis=None, kf_slot=None):
-    """The integrate-and-merge pass (module note), after the claim: the
-    grid's fields are updated in place, `acc` (f32 [num_blocks * B^3, 8],
-    all-zero) is all-zero again on return, and `vis` (int32 [num_blocks,
-    B^3, words], optional) gets keyframe slot `kf_slot`'s bit for every
-    voxel that received a sample (none for a negative slot). Nothing is
-    returned. On CUDA it is one cooperative launch on the current stream,
-    without synchronizing; `scratch` is then required."""
+    """The integrate-and-merge pass (module note), after the claim pass
+    (and on the CPU after `claim_alloc_reference`): the grid's fields are
+    updated in place, `acc` (f32 [num_blocks * B^3, 8], all-zero) is
+    all-zero again on return, and `vis` (int32 [num_blocks, B^3, words],
+    optional) gets keyframe slot `kf_slot`'s bit for every voxel that
+    received a sample (none for a negative slot). Nothing is returned. On
+    CUDA it is one cooperative launch on the current stream, without
+    synchronizing, which first hands out the claim pass's blocks (the
+    grid's structure updated in place) when its status counts claimed
+    blocks; `scratch`, the claim pass's, is then required."""
     _check(depth, normals, cache, R, t, grid, gcfg)
     nvox = grid.num_blocks * grid.voxels_per_block
     if (acc.shape != (nvox, ACC_ROW) or acc.dtype != torch.float32
@@ -270,23 +334,19 @@ def integrate_merge(depth: torch.Tensor, normals: torch.Tensor, cache, R, t,
         raise RuntimeError(f"fuse_integrate: no kernel for {dev}")
     if nvox >= 2**31:
         raise ValueError(f"{nvox} voxels: the kernel's rows need < 2^31")
-    _check_samples(depth, fcfg)
     if acc.data_ptr() % 32:
         raise ValueError("acc must be 32-byte aligned")
-    if scratch is None or scratch.marks.shape != (grid.num_blocks,):
-        raise ValueError("the card's integrate pass needs a FuseScratch of "
-                         "the grid's block count")
+    _check_scratch(scratch, grid, depth, fcfg)
     nf = 5 if accumulate_gradients else 2
     integrate_shape(nf)
     from . import _build
 
     lib = _build.load()
-    a = _args(depth, normals, cache, R, t, grid, gcfg, fcfg,
+    a = _args(depth, normals, cache, R, t, grid, gcfg, fcfg, scratch,
               acc=acc.data_ptr(), weight=grid.weight.data_ptr(),
               dist=grid.dist.data_ptr(), grad_x=grid.grad_x.data_ptr(),
               grad_y=grid.grad_y.data_ptr(), grad_z=grid.grad_z.data_ptr(),
               marks=scratch.marks.data_ptr(),
-              num_active=grid.num_active.data_ptr(),
               vis=None if kf is None else vis.data_ptr(),
               vis_words=0 if vis is None else vis.shape[-1],
               kf_word=0 if kf is None else kf[0],
@@ -331,9 +391,56 @@ def claim_pass_reference(depth, normals, cache, R, t, grid, gcfg, fcfg):
     keys = torch.full((n,), vg.EMPTY_KEY, dtype=torch.int32, device=depth.device)
     mark[cand[miss]] = 1
     keys[cand[miss]] = s.keys[miss]
-    status = torch.stack([miss.sum(dtype=torch.int32),
-                          s.oob.to(torch.int32)])
+    zero = torch.zeros((), dtype=torch.int32, device=depth.device)
+    status = torch.stack([
+        miss.sum(dtype=torch.int32), s.oob.to(torch.int32),
+        zero + torch.unique(tile_of_pixels(idx, depth.shape[1])).numel(),
+        zero + torch.unique(s.keys[miss]).numel()])
     return status, mark, keys
+
+
+def claim_mins_reference(claims, mark, keys):
+    """The claim pass's claims, plain: every marked candidate c scatter-mins
+    c into `claims[keys[c]]` (int32 [dir_dim^3], in place). Returns the
+    marked candidates in order (int64) and their keys (int64)."""
+    cand = torch.nonzero(mark).reshape(-1)
+    want = keys[cand].long()
+    claims.scatter_reduce_(0, want, cand.to(torch.int32), "amin")
+    return cand, want
+
+
+def claim_alloc_reference(grid: vg.VoxelGrid, mark, keys, gcfg: GridConfig,
+                          claims=None) -> vg.VoxelGrid:
+    """Plain version of the card's block claim (the claim pass's atomicMin
+    and the integrate pass's phase 0), over the claim pass's `mark` and
+    `keys`: the claims (`claim_mins_reference`; `claims` int32
+    [dir_dim^3] all INT32_MAX, or a fresh one), the winners (claims[key] ==
+    c), their ranks by a cumsum over the candidates in order, slot
+    num_active + rank, and the writes: directory, coarse occupancy and
+    block coordinates in place, or the overflow flag past the capacity. The
+    claims and marks are put back. Returns the grid with its new block
+    count and overflow flag: the JAX package's `insert_new` over the frame's
+    missing samples, without calling it."""
+    if claims is None:
+        claims = torch.full((grid.directory.numel(),), vg.INT32_MAX,
+                            dtype=torch.int32, device=grid.device)
+    cand, want = claim_mins_reference(claims, mark, keys)
+    won = claims[want] == cand
+    slot = grid.num_active + torch.cumsum(won, 0, dtype=torch.int32) - 1
+    ok = won & (slot < grid.num_blocks)
+    new_keys, new_slots = want[ok], slot[ok]
+    grid.directory[new_keys] = new_slots
+    D = gcfg.dir_dim
+    C = D // vg.COARSE_FACTOR
+    kx, ky, kz = new_keys // (D * D), (new_keys // D) % D, new_keys % D
+    c = vg.COARSE_FACTOR
+    grid.coarse_occ[((kx // c) * C + ky // c) * C + kz // c] = 1
+    grid.block_coords[new_slots.long()] = vg.unpack_key(new_keys, gcfg).to(
+        torch.int32)
+    claims[want] = vg.INT32_MAX
+    mark[cand] = 0
+    return grid._replace(num_active=grid.num_active + ok.sum(dtype=torch.int32),
+                         overflow=grid.overflow | (won & ~ok).any())
 
 
 def merge_blocks_reference(acc, grid: vg.VoxelGrid, blocks, *,

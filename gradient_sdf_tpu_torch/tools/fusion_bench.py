@@ -43,6 +43,14 @@ memsets and copies) and PyTorch's sync debug mode (host syncs); beside it
 the whole `fuse_frame` on the host clock. Then Scan3D on the golden
 dataset through each tree's app in the same turns (`track_bench.app_turns`:
 track_ms, fuse_ms, fps).
+
+    python3 gradient_sdf_tpu_torch/tools/fusion_bench.py --kernels [DIR]
+
+takes the fusion kernels of the tree in DIR (this one by default) apart
+instead (`kernel_split`): one-switch builds of a copy of its
+`csrc/fuse_integrate.cu` under its build directory, timed on golden frames
+0 and 5 beside the unswitched kernels, with their ptxas report and the
+scatter's reductions counted from the plain walk.
 """
 
 import argparse
@@ -87,6 +95,31 @@ def median_ms(fn, reps=20, batches=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def reset_ms(fn, reset, reps=20):
+    """Device time of one `fn()` in ms: the median over `reps` launches of
+    the CUDA-event time around each, `reset()` before each outside the
+    events (a pass that changes its own inputs). Each launch is enqueued
+    behind ~0.5 ms of device-side spinning, so the events bracket device
+    work, not the Python wrapper."""
+    import torch
+
+    reset()
+    fn()
+    times = []
+    for _ in range(reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
 
@@ -373,12 +406,17 @@ def box_protocol():
 
 def fuse_steps(m, depth, R, t, *, kernel, kf_slot=None,
                accumulate_gradients=True):
-    """One frame through `fusion.fuse_frame`'s steps on the map `m`: the
-    claim pass, the block claim, the integrate pass, with the kernel
-    (`kernel=True`) or with its plain versions on the same device. Returns
-    the claim's (misses, oob, marked candidates, their keys)."""
+    """One frame through `fusion.fuse_frame`'s steps on the map `m`: with
+    the kernel (`kernel=True`: the claim pass, then the integrate pass,
+    which hands out the blocks) or with its plain versions on the same
+    device (the claim pass's, the plain block claim through
+    `fusion.claim_blocks`, the integrate pass's). Returns what the claim
+    pass made: its status (misses, oob, valid pixels, claimed blocks), the
+    marked candidates, their keys, the claims of those keys, the tiles
+    with a valid pixel and the claimed keys, both in order."""
     import torch
     from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
     from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
 
     gcfg, fcfg = m.cfg.grid, m.cfg.fusion
@@ -389,15 +427,27 @@ def fuse_steps(m, depth, R, t, *, kernel, kf_slot=None,
     if kernel:
         status, mark, keys = fi.claim_pass(depth, nrm, m.cache, R, t, m.grid,
                                            gcfg, fcfg, m.scratch)
+        counts = tuple(status.tolist())
+        cand = torch.nonzero(mark).reshape(-1)
+        want = keys[cand].long()
+        claimed = m.scratch.claims[want]
+        tiles = torch.sort(m.scratch.tiles[:counts[2]]).values
+        new = torch.sort(m.scratch.new_keys[:counts[3]]).values
     else:
         status, mark, keys = fi.claim_pass_reference(depth, nrm, m.cache, R, t,
                                                      m.grid, gcfg, fcfg)
-    misses, oob = status.tolist()
-    cand = torch.nonzero(mark).reshape(-1)
-    cand_keys = keys[cand]
-    m.grid = fusion.claim_blocks(m.grid, mark, keys, misses, oob, gcfg)
-    if bool(mark.any()):
-        raise AssertionError("the claim's marks were not cleared")
+        counts = tuple(status.tolist())
+        claims = torch.full((m.grid.directory.numel(),), vg.INT32_MAX,
+                            dtype=torch.int32, device=depth.device)
+        cand, want = fi.claim_mins_reference(claims, mark, keys)
+        claimed = claims[want]
+        tiles = torch.unique(fi.tile_of_pixels(torch.nonzero(fusion._pixel_rays(
+            depth, nrm, m.cache, fcfg).valid.reshape(-1)).reshape(-1),
+            depth.shape[1])).int()
+        new = torch.unique(want).int()
+        m.grid = fusion.claim_blocks(m.grid, mark, keys, counts[1], gcfg)
+        if bool(mark.any()):
+            raise AssertionError("the plain claim's marks were not cleared")
     kw = dict(accumulate_gradients=accumulate_gradients, vis=m.vis,
               kf_slot=kf_slot)
     if kernel:
@@ -406,7 +456,7 @@ def fuse_steps(m, depth, R, t, *, kernel, kf_slot=None,
     else:
         fi.integrate_merge_reference(depth, nrm, m.cache, R, t, m.grid, gcfg,
                                      fcfg, m.acc, **kw)
-    return misses, oob, cand, cand_keys
+    return counts, cand, want, claimed, tiles, new
 
 
 def kernel_vs_twin(cfg, depths, poses, K, dev, tol, *, kf_slot=None,
@@ -414,16 +464,18 @@ def kernel_vs_twin(cfg, depths, poses, K, dev, tol, *, kf_slot=None,
     """Fuse `depths` at `poses` into a map on `dev` through the kernel and,
     from a copy of the same state before every frame, through its plain
     versions (`fuse_steps`); hold the two together after every frame: the
-    claims (miss and oob counts, candidates) and the maps' directory,
-    coarse occupancy, block coordinates, block count, overflow, oob counter
-    and visibility words bit for bit, the fields within `tol` ({"weight",
+    claim pass (its status, marked candidates and keys, the claims, the
+    listed tiles, the claimed keys) and the maps' directory, coarse
+    occupancy, block coordinates, block count, overflow, oob counter and
+    visibility words bit for bit, the fields within `tol` ({"weight",
     "dist", "grad"}: float atomics reorder one frame's sums), both
-    accumulators and the kernel's block marks all-zero.
-    Raises AssertionError on a difference; returns {"frames", "misses",
-    "oob", "blocks", "overflow", "weight", "dist", "grad"} (the largest
-    errors)."""
+    accumulators, the kernel's block and candidate marks all-zero and its
+    claims all INT32_MAX. Raises AssertionError on a difference; returns
+    {"frames", "misses", "oob", "blocks", "overflow", "weight", "dist",
+    "grad"} (the largest errors)."""
     import torch
     from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
 
     maps = [GradSdfMap(cfg, with_vis=kf_slot is not None, device=dev)
             for _ in range(2)]
@@ -443,13 +495,13 @@ def kernel_vs_twin(cfg, depths, poses, K, dev, tol, *, kf_slot=None,
             claims.append(fuse_steps(m, d, R, t, kernel=kernel,
                                      kf_slot=kf_slot,
                                      accumulate_gradients=accumulate_gradients))
-        (mk, ok_, ck, kk), (mt, ot, ct, kt) = claims
         what = f"frame {out['frames']}"
-        same = torch.equal(ck, ct) and torch.equal(kk, kt)
-        if (mk, ok_) != (mt, ot) or ck.numel() != mk or not same:
+        (ck, *rk), (ct, *rt) = claims
+        same = [torch.equal(x, y) for x, y in zip(rk, rt)]
+        if ck != ct or rk[0].numel() != ck[0] or not all(same):
             raise AssertionError(
-                f"{what}: claim (misses, oob) kernel {(mk, ok_)} vs plain "
-                f"{(mt, ot)}, marked candidates and keys equal {same}")
+                f"{what}: claim status kernel {ck} vs plain {ct}; candidates, "
+                f"keys, claims, tiles, claimed keys equal {same}")
         gk, gt = maps[0].grid, maps[1].grid
         for k in ("directory", "coarse_occ", "block_coords", "num_active",
                   "overflow", "oob_samples"):
@@ -467,12 +519,15 @@ def kernel_vs_twin(cfg, depths, poses, K, dev, tol, *, kf_slot=None,
             if not e <= tol[k]:
                 raise AssertionError(f"{what}: {k} kernel vs plain max |err| "
                                      f"{e} > {tol[k]}")
-        if any(bool(m.acc.any()) for m in maps) or bool(
-                maps[0].scratch.marks.any()):
-            raise AssertionError(f"{what}: accumulator or marks not zero")
+        sc = maps[0].scratch
+        if (any(bool(m.acc.any()) for m in maps) or bool(sc.marks.any())
+                or bool(sc.cand_mark.any())
+                or not bool((sc.claims == vg.INT32_MAX).all())):
+            raise AssertionError(f"{what}: accumulator, block or candidate "
+                                 f"marks or claims not back to idle")
         out["frames"] += 1
-        out["misses"] += mk
-        out["oob"] += ok_
+        out["misses"] += ck[0]
+        out["oob"] += ck[1]
     out["blocks"] = int(maps[0].grid.num_active)
     out["overflow"] = bool(maps[0].grid.overflow)
     if out["blocks"] <= 0 or not bool(maps[0].grid.weight.any()):
@@ -489,17 +544,21 @@ FP32_PER_S = 67e12
 IMAGE_BYTES_PER_PIXEL = 28   # depth, normal, x0, y0, 1/|h|^2
 
 
-def fuse_bounds(m, depth, R, t, misses):
-    """Least times (ms) of the two launches on this frame and map, each
-    the larger of bytes (each input read once, each output written once)
-    and operations: the claim pass reads the images and every directory
-    sector a live sample needs and writes the `misses` marks (a byte) and
-    keys and the status; the
-    integrate pass reads the images and those sectors again, reads and
-    writes every touched accumulator row once (8 B a field) and merges the
-    touched blocks' rows (`merge_bound_ms`'s 80 B a row). Returns
-    {"claim": (ms, by), "integrate": (ms, by), "rows", "blocks",
-    "sectors"}."""
+def fuse_bounds(m, depth, R, t, misses, opened=0):
+    """Least times (ms) of the two launches on this frame, each the larger
+    of bytes (each input read once, each output written once) and
+    operations, with the map `m` after the frame's claim: the claim pass
+    reads the images and every directory sector a live sample needs,
+    writes the `misses` marks (a byte) and keys, a claim per new block, the
+    list of tiles with a valid pixel and the status; the integrate pass
+    reads the list, the valid pixels' images and those sectors again,
+    reads and writes every
+    touched accumulator row once (8 B a field) and merges the touched
+    blocks' rows (`merge_bound_ms`'s 80 B a row), and, when the frame opens
+    `opened` blocks, reads every candidate's mark byte and the misses' keys
+    and claims and writes each new block's directory entry, coarse cell,
+    coordinates and claim. Returns {"claim": (ms, by), "integrate": (ms,
+    by), "rows", "blocks", "sectors", "valid", "tiles"}."""
     import torch
     from gradient_sdf_tpu_torch.ops import fusion
     from gradient_sdf_tpu_torch.ops import voxel_grid as vg
@@ -514,30 +573,69 @@ def fuse_bounds(m, depth, R, t, misses):
     ok = slot >= 0
     rows = int(torch.unique((slot * gcfg.voxels_per_block + s.local_lin)[ok]).numel())
     blocks = int(torch.unique(slot[ok]).numel())
-    image = depth.numel() * IMAGE_BYTES_PER_PIXEL
-    ops = (idx.numel() * OPS_PER_RAY + int((s.w > 0).sum()) * OPS_PER_SAMPLE
+    valid = idx.numel()
+    tiles = int(torch.unique(fi.tile_of_pixels(idx, depth.shape[1])).numel())
+    ops = (valid * OPS_PER_RAY + int((s.w > 0).sum()) * OPS_PER_SAMPLE
            ) / FP32_PER_S * 1e3
 
     def bound(nbytes):
         b = nbytes / MEM_BYTES_PER_S * 1e3
         return (b, "bytes") if b >= ops else (ops, "operations")
 
-    return {"claim": bound(image + 32 * sectors + 5 * misses + 8),
-            "integrate": bound(image + 32 * sectors + rows * 8 * 5
+    claim_out = 5 * misses + 4 * opened + 4 * tiles + 4 * fi.STATUS
+    open_bytes = (depth.numel() * fi.samples_per_ray(fcfg) + 8 * misses
+                  + 24 * opened) if opened else 0
+    return {"claim": bound(depth.numel() * IMAGE_BYTES_PER_PIXEL + 32 * sectors
+                           + claim_out),
+            "integrate": bound(4 * tiles + valid * IMAGE_BYTES_PER_PIXEL
+                               + 32 * sectors + rows * 8 * 5 + open_bytes
                                + merge_bound_ms(blocks * gcfg.voxels_per_block)
                                * MEM_BYTES_PER_S / 1e3),
-            "rows": rows, "blocks": blocks, "sectors": sectors}
+            "rows": rows, "blocks": blocks, "sectors": sectors, "valid": valid,
+            "tiles": tiles}
+
+
+STRUCTURE = ("directory", "coarse_occ", "block_coords", "num_active",
+             "overflow", "oob_samples")
+
+
+def grid_snapshot(grid):
+    """A copy of the grid's structure (what a claim changes), and a
+    function that writes it back into the grid's own tensors."""
+    snap = {k: getattr(grid, k).clone() for k in STRUCTURE}
+
+    def restore():
+        for k, v in snap.items():
+            getattr(grid, k).copy_(v)
+
+    return restore
+
+
+def scratch_idle(m):
+    """Put the kernel's scratch back to its values between frames after a
+    claim pass that no integrate pass followed (a timing loop of the claim
+    alone): the claims it listed back to INT32_MAX, the candidate marks to
+    0. Touches nothing else, so the frame's images stay in the L2."""
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+
+    sc = m.scratch
+    sc.claims[sc.new_keys[:int(sc.status[3])].long()] = vg.INT32_MAX
+    sc.cand_mark.zero_()
 
 
 def fuse_kernel_times(m, depth, R, t):
-    """Device times (ms, `median_ms`) of the two launches on golden frame
-    5's state `m` (frames 0-4 fused through the kernel): the claim pass and
-    its plain version (which compacts: a host sync, timed with it), then,
-    after this frame's blocks are claimed, the integrate pass and its plain
-    version each on a copy of the map's fields (repeated integration of the
-    same frame is the same work), and the launch floor of the integrate
-    pass (an empty cooperative launch at its grid). Leaves `m` with frame
-    5's blocks claimed and nothing integrated."""
+    """Device times (ms) of the two launches on the map `m` before the
+    frame (`depth`, `R`, `t`) is fused, each beside its plain version: the
+    claim pass (`reset_ms`, the scratch put back to idle before each
+    launch; its plain version compacts, a host sync timed with it); the
+    integrate pass opening the frame's blocks (`reset_ms`, the map's
+    structure, the scratch and the claim pass put back before each launch;
+    plain: `claim_alloc_reference` + `integrate_merge_reference`); then,
+    with the blocks claimed and the claim pass run again (it opens
+    nothing), the integrate pass on a copy of the map's fields (repeated
+    integration of the same frame is the same work) and its plain version;
+    an empty cooperative launch at the integrate pass's grid. Leaves `m`
+    with the frame's blocks claimed and nothing integrated."""
     import torch
     from gradient_sdf_tpu_torch.ops import fusion
     from gradient_sdf_tpu_torch.ops.kernels import _build
@@ -546,24 +644,56 @@ def fuse_kernel_times(m, depth, R, t):
     gcfg, fcfg = m.cfg.grid, m.cfg.fusion
     nrm = fusion.compute_normals(m.cache, depth).contiguous()
     args = (depth, nrm, m.cache, R, t)
-    claim = median_ms(lambda: fi.claim_pass(*args, m.grid, gcfg, fcfg, m.scratch))
-    claim_plain = median_ms(lambda: fi.claim_pass_reference(*args, m.grid, gcfg,
-                                                            fcfg))
-    status, mark, keys = fi.claim_pass(*args, m.grid, gcfg, fcfg, m.scratch)
-    misses, oob = status.tolist()
-    bounds = fuse_bounds(m, depth, R, t, misses)
-    m.grid = fusion.claim_blocks(m.grid, mark, keys, misses, oob, gcfg)
+    restore = grid_snapshot(m.grid)
+
+    def claim():
+        return fi.claim_pass(*args, m.grid, gcfg, fcfg, m.scratch)
+
+    def idle():
+        restore()
+        scratch_idle(m)
+
+    def reset():
+        idle()
+        claim()
+
+    out = {"claim_ms": reset_ms(claim, idle),
+           "claim_plain_ms": median_ms(lambda: fi.claim_pass_reference(
+               *args, m.grid, gcfg, fcfg))}
+    idle()
+    misses = int(claim()[0][0])
 
     def spare():
-        g = m.grid._replace(**{k: getattr(m.grid, k).clone() for k in (
+        """The map's grid with a copy of its fields (its structure shared)."""
+        return m.grid._replace(**{k: getattr(m.grid, k).clone() for k in (
             "weight", "dist", "grad_x", "grad_y", "grad_z")})
-        return g, fusion.new_accumulator(g), fi.new_scratch(g)
 
-    g, acc, scr = spare()
-    integ = median_ms(lambda: fi.integrate_merge(*args, g, gcfg, fcfg, acc, scr))
-    g, acc, _ = spare()
-    integ_plain = median_ms(lambda: fi.integrate_merge_reference(
-        *args, g, gcfg, fcfg, acc))
+    g = spare()
+    out["integrate_open_ms"] = reset_ms(
+        lambda: fi.integrate_merge(*args, g, gcfg, fcfg, m.acc, m.scratch),
+        reset)
+
+    def plain_open():
+        _, mark, keys = fi.claim_pass_reference(*args, g, gcfg, fcfg)
+        fi.integrate_merge_reference(
+            *args, fi.claim_alloc_reference(g, mark, keys, gcfg), gcfg, fcfg,
+            m.acc)
+
+    out["integrate_open_plain_ms"] = reset_ms(plain_open, restore, reps=5)
+    idle()
+    before = int(m.grid.num_active)
+    claim()
+    g = spare()
+    fi.integrate_merge(*args, g, gcfg, fcfg, m.acc, m.scratch)
+    opened = int(m.grid.num_active) - before
+    out["bounds_open"] = fuse_bounds(m, depth, R, t, misses, opened)
+    out["bounds"] = fuse_bounds(m, depth, R, t, 0)
+    claim()
+    out["integrate_ms"] = median_ms(
+        lambda: fi.integrate_merge(*args, g, gcfg, fcfg, m.acc, m.scratch))
+    g = spare()
+    out["integrate_plain_ms"] = median_ms(lambda: fi.integrate_merge_reference(
+        *args, g, gcfg, fcfg, m.acc))
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -571,19 +701,18 @@ def fuse_kernel_times(m, depth, R, t):
         if lib.gsdf_fuse_coop_empty(stream) != 0:
             raise AssertionError("the empty cooperative launch failed")
 
-    floor = median_ms(empty)
-    return {"claim_ms": claim, "claim_plain_ms": claim_plain,
-            "integrate_ms": integ, "integrate_plain_ms": integ_plain,
-            "coop_empty_ms": floor, "misses": misses, "bounds": bounds,
-            "shape": fi.integrate_shape(5)}
+    out.update(coop_empty_ms=median_ms(empty), misses=misses, opened=opened,
+               shape=fi.integrate_shape(5))
+    return out
 
 
 def count_fuse_frame(m, depth, R, t):
     """`fusion.fuse_frame` on the card for one frame of the map `m`
     (updated as the map's `update` would fuse it), with its launches and
     host syncs counted: each kernel's launch counter, the CUDA kernels,
-    memsets and copies under the profiler, and the syncs at the status read
-    (a line of `fusion.fuse_frame`), inside `voxel_grid.insert_new`, and
+    memsets and copies under the profiler, the calls of
+    `voxel_grid.insert_new` and `fusion.claim_blocks`, and the syncs at a
+    line of `fusion.fuse_frame`, inside `voxel_grid.insert_new`, and
     anywhere else (`track_bench.count_syncs`)."""
     import torch
     from torch.autograd import DeviceType
@@ -597,17 +726,32 @@ def count_fuse_frame(m, depth, R, t):
 
     for mod in (fi, mc, sa):
         mod.reset_launch_count()
+    calls = {"insert_new": 0, "claim_blocks": 0}
+    real = {"insert_new": vg.insert_new, "claim_blocks": fusion.claim_blocks}
+
+    def counting(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return fn
+
     torch.cuda.synchronize()
 
     def fuse():
         m.grid = fusion.fuse_frame(m.grid, depth, m.cache, R, t, m.cfg.grid,
                                    m.cfg.fusion, acc=m.acc, scratch=m.scratch)
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, syncs = count_syncs(fuse)
-        torch.cuda.synchronize()
+    vg.insert_new = counting("insert_new")
+    fusion.claim_blocks = counting("claim_blocks")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, syncs = count_syncs(fuse)
+            torch.cuda.synchronize()
+    finally:
+        vg.insert_new = real["insert_new"]
+        fusion.claim_blocks = real["claim_blocks"]
     where = {"status": _lines(fusion.fuse_frame),
-             "insert_new": _lines(vg.insert_new)}
+             "insert_new": _lines(real["insert_new"])}
     n = {k: sum(f == file and line in lines for f, line, _ in syncs)
          for k, (file, lines) in where.items()}
     return {"claim": fi.claim_launch_count, "integrate": fi.launch_count,
@@ -615,7 +759,28 @@ def count_fuse_frame(m, depth, R, t):
             "device_ops": sum(e.count for e in prof.key_averages()
                               if e.device_type == DeviceType.CUDA),
             "status_syncs": n["status"], "insert_syncs": n["insert_new"],
-            "other_syncs": len(syncs) - sum(n.values())}
+            "other_syncs": len(syncs) - sum(n.values()),
+            "insert_calls": calls["insert_new"],
+            "claim_blocks_calls": calls["claim_blocks"]}
+
+
+def fuse_frames_without_sync(m, depths, poses):
+    """`fusion.fuse_frame` on the card for each frame (device tensors; R,
+    t float32) into the map `m`, under PyTorch's sync debug mode "error",
+    which raises at any host sync. Returns the block count after."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import fusion
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for d, (R, t) in zip(depths, poses):
+            m.grid = fusion.fuse_frame(m.grid, d, m.cache, R, t, m.cfg.grid,
+                                       m.cfg.fusion, acc=m.acc,
+                                       scratch=m.scratch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return int(m.grid.num_active)
 
 
 SPLIT_ROUNDS = 5   # fresh maps fused over frames 0-5, after one warm-up
@@ -625,11 +790,12 @@ def fuse_parts(m, depth, R, t):
     """The imported package's single-card `fuse_frame` (no visibility
     bits, the map's accumulator) written out as [(part, fn)], run in
     order; the map's grid is updated as `fuse_frame` would. The package
-    with `ops/kernels/fuse_integrate.py` takes its path (normals, claim
-    pass and status read, block claim, integrate-and-merge launch); an
-    earlier one the plain walk (normals, pixel gates and compaction,
-    sample walk, lookup, `need.any()`, claim insert, scatter,
-    `merge_clear`). A `vis` part ORs a keyframe bit into a spare bitfield
+    with `ops/kernels/fuse_integrate.py` takes its path: normals, claim
+    pass, integrate-and-merge launch (which claims the blocks), or, before
+    the claim moved onto the card, normals, claim pass and status read,
+    block claim, integrate-and-merge launch; an earlier one the plain walk
+    (normals, pixel gates and compaction, sample walk, lookup,
+    `need.any()`, claim insert, scatter, `merge_clear`). A `vis` part ORs a keyframe bit into a spare bitfield
     (the PhotoBA map's extra; the app's map has none)."""
     import importlib.util
 
@@ -646,6 +812,19 @@ def fuse_parts(m, depth, R, t):
     if importlib.util.find_spec(
             "gradient_sdf_tpu_torch.ops.kernels.fuse_integrate") is not None:
         from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+
+        if hasattr(fi, "claim_alloc_reference"):   # the claim on the card
+            def claim_pass():
+                fi.claim_pass(depth, st["nrm"], m.cache, R, t, m.grid, gcfg,
+                              fcfg, m.scratch)
+
+            def integrate_open():
+                fi.integrate_merge(depth, st["nrm"], m.cache, R, t, m.grid,
+                                   gcfg, fcfg, m.acc, m.scratch)
+
+            return [("normals", normals), ("claim pass", claim_pass),
+                    ("integrate + merge (with the block claim)",
+                     integrate_open)]
 
         def claim():
             status, st["mark"], st["keys"] = fi.claim_pass(
@@ -840,6 +1019,276 @@ def split_turns(parent, smi):
         track_bench.app_turns(parent, smi)
 
 
+# The fusion kernels taken apart (`kernel_split`): one-switch builds of a
+# copy of `csrc/fuse_integrate.cu` under the build directory. A switch is a
+# text edit of the copy, made here and never in the source; each build
+# carries one. Per design (a string only its source holds): switch name ->
+# [(text, replacement)], each text found exactly once.
+_SINK = ("{ float s_ = 0.0f; for (int f = 0; f < F; ++f) s_ += x[f]; "
+         "if (s_ == -1.0e30f) p.acc[0] = s_; }")
+_SAME_GRID = ("    s.ctas_per_sm = n;",
+              "    s.ctas_per_sm = n < @CTAS@ ? n : @CTAS@;")
+SPLIT_SWITCHES = {
+    "host block claim": ("stays plain PyTorch\n// between the two launches", {
+        "claim, no directory lookup": [(
+            "} else if (__ldg(p.directory + s.key) < 0) {",
+            "} else if (s.key == -7) {")],
+        "integrate, phase A only": [_SAME_GRID, (
+            "  cg::this_grid().sync();\n  int64_t active",
+            "  return;\n  cg::this_grid().sync();\n  int64_t active")],
+        "integrate, phase A + barrier": [_SAME_GRID, (
+            "  cg::this_grid().sync();\n  int64_t active",
+            "  cg::this_grid().sync();\n  return;\n  int64_t active")],
+        "integrate, phase A without its reductions": [_SAME_GRID, (
+            "gsdf::reduce_row<F, true>(p.acc + static_cast<int64_t>(i) * 8, x);",
+            _SINK)],
+    }),
+    "card block claim": ("in two launches and\n// no host sync", {
+        "claim, no directory lookup": [(
+            "if (key[j] >= 0) slot[j] = __ldg(p.directory + key[j]);",
+            "if (key[j] == -7) slot[j] = 0;")],
+        "integrate, phase 0 only": [_SAME_GRID, (
+            "  // phase A: walk the valid pixels",
+            "  return;\n  // phase A: walk the valid pixels")],
+        "integrate, phases 0 + A": [_SAME_GRID, (
+            "  grid.sync();\n\n  // phase B", "  return;\n  // phase B")],
+        "integrate, phases 0 + A + barrier": [_SAME_GRID, (
+            "  grid.sync();\n\n  // phase B",
+            "  grid.sync();\n  return;\n  // phase B")],
+        "integrate, phase A without its reductions": [_SAME_GRID, (
+            "gsdf::reduce_row<F, true>(p.acc + static_cast<int64_t>(i) * 8, x);",
+            _SINK)],
+        "integrate, warp_aggregate's loop in place of warp_merge": [
+            _SAME_GRID, ("        if (warp_merge<F>(i, x)) {",
+                         "        if (gsdf::warp_aggregate<F>(i, x)) {")],
+    }),
+}
+FUSE_FUNCS = ("gsdf_fuse_claim_f32", "gsdf_fuse_integrate_f32",
+              "gsdf_fuse_integrate_shape", "gsdf_fuse_coop_empty")
+
+
+def ptxas_lines(build_log, key):
+    """{kernel entry: "registers, smem ...; spills"} of the entry functions
+    whose mangled name holds `key`, from an `nvcc -Xptxas -v` log."""
+    import re
+
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if key in m.group(1) else None
+            continue
+        if entry and ("Used" in line or "spill" in line):
+            text = line.split(":", 1)[-1].strip()
+            out[entry] = f"{out[entry]}; {text}" if entry in out else text
+    return out
+
+
+def build_switched(text, name, edits, ctas):
+    """`text` (a `fuse_integrate.cu`) with `edits` applied, built by itself
+    under the build directory; `ctas` stands for @CTAS@ in the edits (the
+    unswitched integrate kernel's CTAs an SM, so that a switched build
+    launches the same grid). Returns (ctypes library with the fusion entry
+    points declared as the package's, compiler output)."""
+    import ctypes
+    import glob
+    import re
+    import shutil
+
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise AssertionError(f"switch {name!r}: its anchor is not in the "
+                                 f"source exactly once")
+        text = text.replace(old, new.replace("@CTAS@", str(ctas)))
+    out_dir = os.path.join(_build.BUILD_ROOT, "split", re.sub(r"\W+", "-", name))
+    os.makedirs(out_dir, exist_ok=True)
+    for header in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
+        shutil.copy(header, out_dir)
+    src = os.path.join(out_dir, "fuse_integrate.cu")
+    with open(src, "w") as f:
+        f.write(text)
+    target = os.path.join(out_dir, "lib.so")
+    log = _build._compile([src], out_dir, target)
+    lib, real = ctypes.CDLL(target), _build.load()
+    for fn in FUSE_FUNCS:
+        getattr(lib, fn).argtypes = getattr(real, fn).argtypes
+        getattr(lib, fn).restype = getattr(real, fn).restype
+    return lib, log
+
+
+def with_lib(lib, fn):
+    """fn() with the package's wrappers launching from `lib`."""
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+
+    saved = _build._lib
+    _build._lib = lib
+    try:
+        return fn()
+    finally:
+        _build._lib = saved
+
+
+def reduction_counts(m, depth, R, t):
+    """What the scatter of this frame asks of the L2 under the host-claim
+    design's layout (a warp = 32 consecutive pixels, one reduction per
+    distinct row of a warp and step k), counted from the plain walk after
+    the claim: live samples in the map, their distinct accumulator rows,
+    the reductions."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+
+    gcfg, fcfg = m.cfg.grid, m.cfg.fusion
+    nrm = fusion.compute_normals(m.cache, depth).contiguous()
+    idx, s = fi.frame_walk(depth, nrm, m.cache, R, t, gcfg, fcfg)
+    k = fi.samples_per_ray(fcfg)
+    slot = vg.lookup_keys(m.grid, s.keys, gcfg)
+    ok = slot >= 0
+    nvox = m.grid.num_blocks * gcfg.voxels_per_block
+    row = (slot.long() * gcfg.voxels_per_block + s.local_lin)[ok]
+    warp_step = ((idx // 32)[:, None] * k + torch.arange(k, device=idx.device)
+                 ).reshape(-1)[ok]
+    return {"samples": int(ok.sum()), "rows": int(torch.unique(row).numel()),
+            "reductions": int(torch.unique(warp_step * nvox + row).numel())}
+
+
+def kernel_split():
+    """Step 0 for the imported tree: its fusion kernels' ptxas report, and
+    on golden frame 0 (an empty map: every live sample misses) and frame 5
+    (after frames 0-4) the claim pass and the integrate pass timed whole
+    and under each of its design's switches (SPLIT_SWITCHES; the switched
+    integrate builds launch the unswitched kernel's grid), beside an empty
+    cooperative launch. The claim pass is timed with `reset_ms`, the map's
+    oob counter (and the scratch, where the card claims the blocks) put
+    back before each launch. The integrate pass is timed after the frame's
+    blocks are claimed (and the claim pass run again: it opens nothing), on
+    a copy of the map's fields; where the card claims the blocks, also
+    while it opens them (`reset_ms`, the map's structure, the scratch and
+    the claim pass put back before each launch). Then `reduction_counts`.
+    Returns a dict."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
+
+    dev = torch.device("cuda")
+    real = _build.load()
+    with open(os.path.join(_build.CSRC, "fuse_integrate.cu")) as f:
+        text = f.read()
+    design = next(d for d, (mark, _) in SPLIT_SWITCHES.items() if mark in text)
+    switches = SPLIT_SWITCHES[design][1]
+    shape = fi.integrate_shape(5)
+    with ThreadPoolExecutor(len(switches)) as ex:
+        built = dict(zip(switches, ex.map(
+            lambda kv: build_switched(text, *kv, shape[0]), switches.items())))
+    out = {"design": design, "ptxas": ptxas_lines(_build.build_log, "fuse_"),
+           "ptxas_switched": {n: ptxas_lines(log, "fuse_integrate")
+                              for n, (_, log) in built.items()
+                              if n.startswith("integrate")},
+           "shape": shape, "frames": {}}
+    cfg, depths, poses = golden_protocol()
+    K = synth.KINECT_K
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        if real.gsdf_fuse_coop_empty(stream) != 0:
+            raise AssertionError("the empty cooperative launch failed")
+
+    def each(kind, fn):
+        """{name: fn()} unswitched and under every switch of `kind`."""
+        res = {kind: fn()}
+        for name, (lib, _) in built.items():
+            if name.startswith(kind):
+                res[name] = with_lib(lib, fn)
+        return res
+
+    for n in (0, 5):
+        m = GradSdfMap(cfg, device=dev)
+        for i in range(n):
+            m.update(depths[i], K, poses[i])
+        m.ensure_cache(K, 640, 480)
+        gcfg, fcfg = m.cfg.grid, m.cfg.fusion
+        d = torch.as_tensor(depths[n], device=dev)
+        R, t = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in poses[n])
+        nrm = fusion.compute_normals(m.cache, d).contiguous()
+        args = (d, nrm, m.cache, R, t)
+        restore = grid_snapshot(m.grid)
+
+        def claim():
+            return fi.claim_pass(*args, m.grid, gcfg, fcfg, m.scratch)
+
+        def idle():
+            restore()
+            if design != "host block claim":
+                scratch_idle(m)
+
+        ms = each("claim", lambda: reset_ms(claim, idle))
+        idle()
+        status, mark, keys = claim()
+        misses = int(status[0])
+        before = int(m.grid.num_active)
+        if design == "host block claim":
+            m.grid = fusion.claim_blocks(m.grid, mark, keys, misses,
+                                         int(status[1]), gcfg)
+        else:
+            def reset():
+                idle()
+                claim()
+
+            opening = each("integrate", lambda: reset_ms(
+                lambda: fi.integrate_merge(*args, m.grid, gcfg, fcfg, m.acc,
+                                           m.scratch), reset))
+            ms.update({f"{k}, opening the frame's blocks": v
+                       for k, v in opening.items() if "without" not in k})
+            m.acc.zero_()   # the switched builds stop before the merge
+            m.scratch.marks.zero_()
+            reset()
+        g = m.grid._replace(**{k: getattr(m.grid, k).clone() for k in (
+            "weight", "dist", "grad_x", "grad_y", "grad_z")})
+
+        def integrate():
+            fi.integrate_merge(*args, g, gcfg, fcfg, m.acc, m.scratch)
+
+        integrate()
+        opened = int(m.grid.num_active) - before
+        claim()
+        ms.update(each("integrate", lambda: median_ms(integrate)))
+        m.acc.zero_()
+        m.scratch.marks.zero_()
+        ms["empty cooperative launch"] = median_ms(empty)
+        out["frames"][n] = {
+            "ms": ms, "misses": misses, "opened": opened,
+            "counts": reduction_counts(m, d, R, t)}
+    return out
+
+
+def split_report(res, smi, tag):
+    """Print `kernel_split`'s result."""
+    log(f"{tag}: fusion kernels of the {res['design']} design taken apart by "
+        f"one-switch builds [{smi}]")
+    for k, v in res["ptxas"].items():
+        log(f"  ptxas {k}: {v}")
+    for name, lines in res["ptxas_switched"].items():
+        for k, v in lines.items():
+            log(f"  ptxas ({name}) {k}: {v}")
+    for n, r in res["frames"].items():
+        c = r["counts"]
+        log(f"  golden frame {n} ({r['misses']} missing samples, {r['opened']} "
+            f"blocks opened): " + "; ".join(f"{k} {v:.4f} ms"
+                                            for k, v in r["ms"].items()))
+        log(f"    {c['samples']} live samples in the map into {c['rows']} "
+            f"distinct rows; {c['reductions']} global reductions with warps "
+            f"of 32 pixels in a row")
+
+
 def run_tree(root, samples):
     cmd = [sys.executable, os.path.abspath(__file__), "--tree", root, samples]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
@@ -857,8 +1306,12 @@ def main():
                     help="only the split of fuse_frame (module note)")
     ap.add_argument("--split-tree", metavar="DIR",
                     help="the split for the package in DIR alone")
+    ap.add_argument("--kernels", metavar="DIR", nargs="?", const=OWN_ROOT,
+                    help="only the fusion kernels of the tree in DIR (this "
+                         "one by default) taken apart (`kernel_split`)")
     args = ap.parse_args()
-    root = args.tree[0] if args.tree else (args.split_tree or OWN_ROOT)
+    root = (args.tree[0] if args.tree
+            else (args.split_tree or args.kernels or OWN_ROOT))
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -878,6 +1331,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
+    if args.kernels:
+        split_report(kernel_split(), smi, f"tree {args.kernels}")
+        return 0
     if args.split:
         split_turns(args.parent, smi)
         log(smi)

@@ -1,17 +1,18 @@
-"""Fusion's integrate kernel (gradient_sdf_tpu_torch/ops/kernels/
-fuse_integrate.py): its plain versions, which are the CPU path of
-`fusion.fuse_frame` and the card kernel's oracle, against the JAX
-package's `fuse_frame`.
+"""Fusion's kernel (gradient_sdf_tpu_torch/ops/kernels/fuse_integrate.py):
+its plain versions, which are the CPU path of `fusion.fuse_frame` and the
+card kernel's oracle, against the JAX package's `fuse_frame` and
+`voxel_grid.insert_new`.
 
 Frames: tests/test_torch_fusion.py's three orbit frames of two spheres at
 its 64x48 camera, with depth noise from a numpy seed on the hit pixels (so
 later frames claim blocks the first did not), handed to both packages as
 numpy arrays; the JAX fusion takes the port's normals (that file's
 `same_normals` fixture, see its docstring). Each frame goes through the
-port's steps by hand: `claim_pass`, `fusion.claim_blocks`,
-`integrate_merge`. The CUDA kernel itself is held to these plain versions
-by the `gpu`-marked tests (skipped without a card) and by `chip_smoke.py`
-phase 3b.
+port's steps by hand: `claim_pass`, `fusion.claim_blocks` (the plain block
+claim, `claim_alloc_reference`), `integrate_merge`. The port's
+`insert_new` is never called here (the `no_insert_new` fixture). The CUDA
+kernel itself is held to these plain versions by the `gpu`-marked tests
+(skipped without a card) and by `chip_smoke.py` phase 3b.
 
 Tolerances, with their reasons:
   * structure (directory, coarse occupancy, block coordinates, block
@@ -60,6 +61,17 @@ def noisy(frames):
     return out
 
 
+@pytest.fixture(autouse=True)
+def no_insert_new(monkeypatch):
+    """The port's claim never goes through `voxel_grid.insert_new` (the
+    mesh's fusion keeps it; nothing here runs the mesh)."""
+
+    def refuse(*a, **k):
+        raise AssertionError("the port's fusion called insert_new")
+
+    monkeypatch.setattr(tvg, "insert_new", refuse)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -68,14 +80,43 @@ def _steps(tg, tc, depth, R, t, gcfg, fcfg, acc, **kw):
     """One frame through the port's steps on the CPU (fuse_frame's body)."""
     nrm = tnorm.compute_normals(tc, depth).contiguous()
     status, mark, keys = fi.claim_pass(depth, nrm, tc, R, t, tg, gcfg, fcfg)
-    misses, oob = status.tolist()
-    tg = tfu.claim_blocks(tg, mark, keys, misses, oob, gcfg)
+    misses, oob = status.tolist()[:2]
+    tg = tfu.claim_blocks(tg, mark, keys, oob, gcfg)
+    assert not mark.any()
     fi.integrate_merge(depth, nrm, tc, R, t, tg, gcfg, fcfg, acc, **kw)
     return tg, misses, oob
 
 
+def _claim_vs_insert_new(jg, tg, jc, tc, d, R, t, gcfg, fcfg):
+    """The frame's block claim from the maps' current state both ways: the
+    JAX package's `insert_new` over its uncompacted walk's missing samples,
+    and the port's `claim_pass_reference` + `claim_alloc_reference` on a
+    copy of the port's map; structure and claims equal exactly. Returns the
+    number of missing samples."""
+    jd = jnp.asarray(d)
+    s = jfu._sample_frame(jd, jfu.compute_normals(jc, jd), jc, jnp.asarray(R),
+                          jnp.asarray(t), gcfg, fcfg)
+    want = (s.keys >= 0) & (jvg.lookup_keys(jg, s.keys, gcfg) < 0)
+    jgot = jvg.insert_new(jg, s.keys, want, gcfg)
+    tg = type(tg)(*(a.clone() for a in tg))
+    nrm = tnorm.compute_normals(tc, _t(d)).contiguous()
+    _, mark, keys = fi.claim_pass_reference(_t(d), nrm, tc, _t(R), _t(t), tg,
+                                            gcfg, fcfg)
+    np.testing.assert_array_equal(np.flatnonzero(mark.numpy()),
+                                  np.flatnonzero(np.asarray(want)))
+    claims = torch.full((gcfg.dir_dim**3,), tvg.INT32_MAX, dtype=torch.int32)
+    tgot = fi.claim_alloc_reference(tg, mark, keys, gcfg, claims)
+    a = interop.grid_to_numpy(tgot)
+    b = {k: np.asarray(v) for k, v in jgot._asdict().items()}
+    for k in ("directory", "coarse_occ", "block_coords", "num_active",
+              "overflow"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert not mark.any() and bool((claims == tvg.INT32_MAX).all())
+    return int(np.asarray(want).sum())
+
+
 def _both(noisy, caches, fcfg=FCFG, gcfg=GCFG, vis_words=None, kf=None,
-          **kw):
+          check_claim=False, **kw):
     jc, tc = caches
     jg, tg = jvg.create(gcfg), tvg.create(gcfg, "cpu")
     acc = tfu.new_accumulator(tg)
@@ -86,6 +127,8 @@ def _both(noisy, caches, fcfg=FCFG, gcfg=GCFG, vis_words=None, kf=None,
                            dtype=torch.int32)
     claims = []
     for i, (d, R, t) in enumerate(noisy):
+        if check_claim:
+            _claim_vs_insert_new(jg, tg, jc, tc, d, R, t, gcfg, fcfg)
         slot = None if kf is None else kf[i]
         jkw = dict(kw)
         if jvis is not None:
@@ -97,7 +140,77 @@ def _both(noisy, caches, fcfg=FCFG, gcfg=GCFG, vis_words=None, kf=None,
                                  vis=tvis, kf_slot=slot, **kw)
         claims.append((misses, oob))
         assert not acc.any()
+        if check_claim:
+            _assert_same_map(jg, tg)
     return jg, tg, jvis, tvis, claims
+
+
+# The block claim's cases: (grid, fusion, frames, what the claims must show)
+CLAIM_CASES = {
+    "opens_blocks": (GCFG, FCFG, slice(None), "every frame opens blocks"),
+    # 6 cm voxels: a block spans 48 cm, so most of a frame's samples share a
+    # few keys and each key is claimed by many candidates
+    "shared_keys": (dataclasses.replace(GCFG, voxel_size=0.06), FCFG,
+                    slice(None), "many candidates a key"),
+    "overflow": (dataclasses.replace(GCFG, num_blocks=12), FCFG, slice(None),
+                 "capacity overflow"),
+    # 1 cm voxels and 8^3 blocks: +-32 cm, so the spheres reach past it
+    "oob": (dataclasses.replace(GCFG, voxel_size=0.01, dir_dim=8), FCFG,
+            slice(None), "samples outside the directory"),
+    "stride2": (GCFG, dataclasses.replace(FCFG, fusion_stride=2), slice(None),
+                "every frame opens blocks"),
+    "first_frame": (GCFG, FCFG, slice(0, 1), "a whole first frame"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLAIM_CASES))
+def test_claim_alloc_matches_jax_insert_new(noisy, caches, case):
+    """The plain block claim (`claim_alloc_reference`, never `insert_new`)
+    gives the JAX `insert_new`'s directory, coarse occupancy, block
+    coordinates, block count and overflow on every frame, and the fused
+    maps agree with the JAX `fuse_frame` after every frame (structure and
+    oob counter exactly, fields within ATOL)."""
+    gcfg, fcfg, frames, what = CLAIM_CASES[case]
+    jg, tg, _, _, claims = _both(noisy[frames], caches, fcfg, gcfg,
+                                 check_claim=True)
+    misses = [m for m, _ in claims]
+    if what == "every frame opens blocks":
+        assert all(m > 0 for m in misses)
+    elif what == "many candidates a key":
+        assert sum(misses) > 20 * int(tg.num_active)
+    elif what == "capacity overflow":
+        assert bool(tg.overflow) and int(tg.num_active) == gcfg.num_blocks
+    elif what == "samples outside the directory":
+        assert int(tg.oob_samples) > 0
+    else:
+        assert len(misses) == 1 and misses[0] > 0
+        assert int(tg.num_active) > 10
+    _assert_same_map(jg, tg)
+
+
+@pytest.mark.parametrize("keyframes", [False, True])
+def test_cpu_fuse_frame_matches_jax(noisy, caches, keyframes):
+    """`fusion.fuse_frame` itself on CPU tensors (claim pass, plain block
+    claim, integrate pass) equals the JAX `fuse_frame` frame by frame, with
+    and without keyframe bits."""
+    jc, tc = caches
+    jg, tg = jvg.create(GCFG), tvg.create(GCFG, "cpu")
+    jvis = jnp.zeros(tuple(jg.dist.shape) + (2,), jnp.uint32)
+    tvis = torch.zeros(tuple(tg.dist.shape) + (2,), dtype=torch.int32)
+    for i, (d, R, t) in enumerate(noisy):
+        args = (jnp.asarray(d), jc, jnp.asarray(R), jnp.asarray(t), GCFG, FCFG)
+        targs = (_t(d), tc, _t(R), _t(t), GCFG, FCFG)
+        if keyframes:
+            jg, jvis = jfu.fuse_frame(jg, *args, vis=jvis,
+                                      kf_slot=jnp.int32(31 + i))
+            tg, tvis = tfu.fuse_frame(tg, *targs, vis=tvis, kf_slot=31 + i)
+            np.testing.assert_array_equal(tvis.numpy().view(np.uint32),
+                                          np.asarray(jvis))
+        else:
+            jg = jfu.fuse_frame(jg, *args)
+            tg = tfu.fuse_frame(tg, *targs)
+        _assert_same_map(jg, tg)
+    assert int(tg.num_active) > 10
 
 
 VARIANTS = {
@@ -169,24 +282,33 @@ def test_claim_candidates_are_the_jax_walks_missing_samples(noisy, caches):
     status, mark, got = fi.claim_pass(_t(d1), nrm, tc, _t(R1), _t(t1), tg, GCFG,
                                       FCFG)
     assert status.dtype == torch.int32 and status.shape == (fi.STATUS,)
-    assert status.tolist() == [want.size, int(s.oob)]
+    valid = np.asarray(jfu._pixel_rays(jnp.asarray(d1), jfu.compute_normals(
+        jc, jnp.asarray(d1)), jc, FCFG).valid)
+    tiles = fi.tile_of_pixels(torch.from_numpy(np.flatnonzero(valid)), W)
+    assert status.tolist() == [want.size, int(s.oob),
+                               torch.unique(tiles).numel(),
+                               np.unique(keys[want]).size]
     assert mark.dtype == torch.uint8 and mark.shape == keys.shape
     np.testing.assert_array_equal(np.flatnonzero(mark.numpy()), want)
     np.testing.assert_array_equal(got.numpy()[want], keys[want])
 
 
 def test_map_keeps_its_scratch_zero_and_sized(noisy):
-    """`GradSdfMap` owns the kernel's scratch beside its accumulator: both
-    stay zero between frames (bare fuse_frame calls give the same bits),
-    and growth rebuilds them at the grown grid's block count."""
-    cfg = PipelineConfig(grid=dataclasses.replace(GCFG, num_blocks=16),
+    """`GradSdfMap` owns the kernel's scratch beside its accumulator: the
+    accumulator and the marks stay zero and the claims INT32_MAX between
+    frames, and growth (capacity and world range) rebuilds them at the
+    grown grid's block count and directory."""
+    cfg = PipelineConfig(grid=dataclasses.replace(GCFG, num_blocks=16, dir_dim=4),
                          fusion=dataclasses.replace(FCFG, normal_window=5))
     m = TMap(cfg, device="cpu")
     for d, R, t in noisy:
         m.update(d, K, (R, t))
         assert not m.acc.any() and not m.scratch.marks.any()
+        assert bool((m.scratch.claims == tvg.INT32_MAX).all())
         assert m.scratch.marks.shape == (m.grid.num_blocks,)
-    assert any(e["kind"] == "capacity" for e in m.growth_events)
+        assert m.scratch.claims.shape == (m.cfg.grid.dir_dim**3,)
+    kinds = {e["kind"] for e in m.growth_events}
+    assert kinds == {"capacity", "world_range"}
     assert m.acc.shape == (m.grid.num_blocks * m.grid.voxels_per_block, 8)
 
 
@@ -293,11 +415,12 @@ def test_cuda_kernel_matches_plain_passes(noisy, case):
 
 
 @pytest.mark.gpu
-def test_cuda_fuse_frame_is_two_launches_and_one_sync(noisy):
+def test_cuda_fuse_frame_is_two_launches_and_no_sync(noisy):
     """On a card a fused frame launches the claim pass and the integrate
-    pass once each, neither the scatter kernel nor merge_clear, and waits
-    for the device once (the claim's status) plus `insert_new`'s own waits
-    on a frame that opens blocks."""
+    pass once each, neither the scatter kernel nor merge_clear, waits for
+    the device nowhere (PyTorch's sync debug mode "error" raises at any
+    wait), and never calls `insert_new` or `claim_blocks`: on a frame that
+    opens blocks and on one that opens none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     cfg = PipelineConfig(grid=GCFG, fusion=dataclasses.replace(
@@ -312,5 +435,23 @@ def test_cuda_fuse_frame_is_two_launches_and_one_sync(noisy):
     for c in (opened, again):
         assert (c["claim"], c["integrate"], c["scatter_add"],
                 c["merge_clear"]) == (1, 1, 0, 0)
-        assert c["status_syncs"] == 1 and c["other_syncs"] == 0
-    assert opened["insert_syncs"] > 0 and again["insert_syncs"] == 0
+        assert c["status_syncs"] == c["insert_syncs"] == c["other_syncs"] == 0
+        assert c["insert_calls"] == c["claim_blocks_calls"] == 0
+    fb.fuse_frames_without_sync(m, [d, d], [(R, t)] * 2)
+
+
+@pytest.mark.gpu
+def test_cuda_claim_matches_claim_alloc_reference_on_overflow(noisy):
+    """On a card, a 12-block grid: the kernel's claims, slots, directory,
+    coarse occupancy, block coordinates, block count and overflow flag
+    equal `claim_alloc_reference`'s from the same state on every frame, and
+    the claims and candidate marks are back to their idle values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    cfg = PipelineConfig(grid=dataclasses.replace(GCFG, num_blocks=12),
+                         fusion=dataclasses.replace(FCFG, normal_window=5))
+    r = fb.kernel_vs_twin(cfg, [d for d, _, _ in noisy],
+                          [(R, t) for _, R, t in noisy], K,
+                          torch.device("cuda"),
+                          {"weight": ATOL, "dist": ATOL, "grad": ATOL})
+    assert r["overflow"] and r["blocks"] == 12 and r["misses"] > 0
