@@ -7,9 +7,11 @@ Builds the port's CUDA kernels from this checkout, checks each against its
 plain PyTorch version on the card, checks card fusion against the port on
 the CPU, holds fusion's two-launch kernel (`csrc/fuse_integrate.cu`) to its
 plain passes frame by frame on the golden protocol, the box world and every
-fusion option, takes it apart by one-switch builds, and counts a fused
-frame's launches and host syncs, with golden frames 0-5 fused under
-PyTorch's sync debug mode "error" (phase 3b), then drives the Scan3D main path through its CLI entry point on
+fusion option, takes it apart by one-switch builds, holds the FALS normals
+kernel (`csrc/fals_normals.cu`) to its plain version on golden frames 0-5
+(window sums, normals and fusion's gated pixels), and counts a fused
+frame's launches, `nonzero` calls and host syncs, with golden frames 0-5
+fused under PyTorch's sync debug mode "error" (phase 3b), then drives the Scan3D main path through its CLI entry point on
 the golden protocol (640x480 spheres, seed 2, 6 frames over a 4 degree
 arc, 2 cm voxels, app-default 16384-block grid) in tracking and in GT-pose
 mode, and checks what comes out. Then the second executable: PhotoBA
@@ -19,8 +21,11 @@ and the high-resolution exports; phase 6), the same app on textured
 spheres from ground-truth poses with BA started from perturbed poses
 (phase 6b: BA has to win energy and pose error back), and one BA
 alternation at F = 30 keyframes x V = 102400 voxels x 640x480 images, card
-against CPU (phase 7). Phase 4b holds the GN loop kernel (one launch a
-tracked frame) to its plain version at every iteration of golden frames 1-5,
+against CPU (phase 7). Phase 4b holds the tracker's compaction kernel
+(`csrc/track_compact.cu`) to `compact_points` and the GN loop kernel (one
+launch each a tracked frame, one host sync: the status read; the two
+launches enqueued under sync debug mode "error") to its plain version at
+every iteration of golden frames 1-5,
 with its one-pass launch and the mesh's step kernel, and times tracking
 through it beside the plain loop with and without the packed rows
 (`tools/track_bench.py`); phases 8-9 hold the march kernel to its plain version and
@@ -609,6 +614,26 @@ def phase_fuse_integrate(smi):
                 *(torch.as_tensor(a, dtype=torch.float32, device=dev)
                   for a in poses[i]))
 
+    # the normals kernel against its plain version on golden frames 0-5
+    ncache = golden_map(0).cache
+    nres = fb.normals_vs_plain(ncache, [frame(i)[0] for i in range(6)],
+                               cfg.fusion)
+    if any(r["gate_diff"] for r in nres):
+        raise AssertionError(f"fals_normals: fusion's gates differ from the "
+                             f"plain normals' on golden frames 0-5: {nres}")
+    ntimes = fb.normals_times(ncache, frame(5)[0])
+    log(f"phase3b fals_normals vs compute_normals, golden frames 0-5: window "
+        f"sums b differ in {[r['b_diff'] for r in nres]} values (max "
+        f"{max(r['b_ulps'] for r in nres)} ulp), normals in "
+        f"{[r['n_diff'] for r in nres]} values (max "
+        f"{max(r['n_ulps'] for r in nres)} ulp, max |err| "
+        f"{max(r['max_abs_err'] for r in nres):.3g}; NaN pixels "
+        f"{[r['nan'] for r in nres]}, the same), fusion's gated pixels "
+        f"{[r['gated'] for r in nres]}, {sum(r['gate_diff'] for r in nres)} "
+        f"gated otherwise; frame 5 [{smi}]: kernel {ntimes['ms']:.4f} ms "
+        f"(bound {ntimes['bound_ms']:.5f}, {ntimes['bound_by']}; plain "
+        f"compute_normals {ntimes['plain_ms']:.4f}, of which its float64 "
+        f"box_filter {ntimes['box_filter_ms']:.4f}; no single library call)")
     times = {}
     for n in (0, 5):
         tm = times[n] = fb.fuse_kernel_times(golden_map(n), *frame(n))
@@ -639,7 +664,8 @@ def phase_fuse_integrate(smi):
         raise AssertionError(f"frame 5 opened {opened} blocks, then "
                              f"{int(m.grid.num_active) - before - opened}")
     for c in (grew, again):
-        if not (c["claim"] == c["integrate"] == 1
+        if not (c["normals"] == c["claim"] == c["integrate"] == 1
+                and c["nonzero"] == 0
                 and c["scatter_add"] == c["merge_clear"] == 0
                 and c["status_syncs"] == c["insert_syncs"] == 0
                 and c["other_syncs"] == 0
@@ -654,8 +680,10 @@ def phase_fuse_integrate(smi):
             m.grid.directory, ref.grid.directory):
         raise AssertionError(f"fused without syncs: {blocks} blocks vs the "
                              f"map's {int(ref.grid.num_active)}")
-    log(f"phase3b a fused frame: {grew['claim']} claim + {grew['integrate']} "
-        f"integrate launches, scatter_add {grew['scatter_add']}, merge_clear "
+    log(f"phase3b a fused frame: {grew['normals']} fals_normals + "
+        f"{grew['claim']} claim + {grew['integrate']} "
+        f"integrate launches, {grew['nonzero']} nonzero calls, scatter_add "
+        f"{grew['scatter_add']}, merge_clear "
         f"{grew['merge_clear']}; {grew['device_ops']} device ops and "
         f"{grew['status_syncs'] + grew['insert_syncs'] + grew['other_syncs']} "
         f"host syncs opening {opened} blocks, insert_new called "
@@ -665,7 +693,9 @@ def phase_fuse_integrate(smi):
         f" host syncs opening none; golden frames 0-5 fused under sync debug "
         f"mode \"error\": {blocks} blocks, directory equal to the map's")
     t5 = times[5]
-    stats = {"claim": {"max_abs_err": 0.0, "ms": t5["claim_ms"],
+    stats = {"normals": {"max_abs_err": max(r["max_abs_err"] for r in nres),
+                         **ntimes},
+             "claim": {"max_abs_err": 0.0, "ms": t5["claim_ms"],
                        "plain_ms": t5["claim_plain_ms"],
                        "bound_ms": t5["bounds_open"]["claim"][0],
                        "bound_by": t5["bounds_open"]["claim"][1],
@@ -710,14 +740,17 @@ def run_app(data, results, extra, data_type="synth", voxel_size="0.02"):
 
 
 def kernel_modules():
+    from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
     from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
     from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
     from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
     from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
     from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
+    from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
 
     return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm,
-            "gn_residual_reduce": gt, "fuse_integrate": fi}
+            "gn_residual_reduce": gt, "fuse_integrate": fi,
+            "fals_normals": fn, "track_compact": tc}
 
 
 def reset_launch_counts():
@@ -735,15 +768,17 @@ def launch_counts():
     return counts
 
 
-# one card fuses a frame in the two launches of fuse_integrate.cu (claim
-# pass, integrate-and-merge pass) and launches neither the scatter kernel
-# nor merge_clear; each rank of a mesh scatters and merges its shard with
-# those two and launches no fuse_integrate pass
-FUSION_KERNELS = ("fuse_claim", "fuse_integrate")
+# one card fuses a frame in one launch of the normals kernel and the two
+# launches of fuse_integrate.cu (claim pass, integrate-and-merge pass) and
+# launches neither the scatter kernel nor merge_clear; each rank of a mesh
+# takes the plain normals, scatters and merges its shard with those two and
+# launches none of the three
+FUSION_KERNELS = ("fals_normals", "fuse_claim", "fuse_integrate")
 MESH_FUSION_KERNELS = ("scatter_add", "merge_clear")
-# one card tracks a frame in one launch of the loop kernel; a mesh rank runs
-# the one-pass launch and the step kernel once per GN iteration
-TRACKED = FUSION_KERNELS + ("gn_track_loop",)
+# one card tracks a frame in one launch of the compaction kernel and one of
+# the loop kernel; a mesh rank compacts in plain PyTorch and runs the
+# one-pass launch and the step kernel once per GN iteration
+TRACKED = FUSION_KERNELS + ("track_compact", "gn_track_loop")
 MESH_TRACKED = MESH_FUSION_KERNELS + ("gn_residual_reduce", "gn_step")
 
 
@@ -762,18 +797,23 @@ def check_fusion_launches(launches, fused, ranks=1):
 
 
 def check_track_launches(m, launches, ranks=1):
-    """On one card a tracked run launches the GN loop kernel once per
-    tracked frame and neither the one-pass launch nor the step kernel; on
-    each rank of a mesh it launches the one-pass launch and the step kernel
-    once per GN iteration and the loop kernel never."""
+    """On one card a tracked run launches the compaction kernel and the GN
+    loop kernel once per tracked frame and neither the one-pass launch nor
+    the step kernel; on each rank of a mesh it launches the one-pass launch
+    and the step kernel once per GN iteration and neither the compaction
+    kernel nor the loop kernel."""
     frames = sum(e["gn_iters"] is not None for e in m["frame_log"])
     iters = ranks * sum(e["gn_iters"] or 0 for e in m["frame_log"])
     if ranks == 1:
-        ok = (frames > 0 and launches["gn_track_loop"] == frames
+        ok = (frames > 0
+              and launches["gn_track_loop"] == launches["track_compact"]
+              == frames
               and launches["gn_residual_reduce"] == launches["gn_step"] == 0)
-        want = f"one loop launch per frame for {frames} tracked frames"
+        want = (f"one compaction and one loop launch per frame for {frames} "
+                f"tracked frames")
     else:
-        ok = (iters > 0 and launches["gn_track_loop"] == 0
+        ok = (iters > 0
+              and launches["gn_track_loop"] == launches["track_compact"] == 0
               and launches["gn_residual_reduce"] == launches["gn_step"] == iters)
         want = (f"one one-pass and one step launch per GN iteration and rank "
                 f"for {iters}")
@@ -2393,8 +2433,8 @@ def main():
                      "--no-noise", "--device", "cuda"])
     launches, straight, straight_err = phase_app(data, n_frames)
     track = phase_pack(data, n_frames, smi)
-    kstats["loop"], kstats["reduce"], kstats["step"] = (
-        track["loop"], track["reduce"], track["step"])
+    kstats["loop"], kstats["reduce"], kstats["step"], kstats["compact"] = (
+        track["loop"], track["reduce"], track["step"], track["compact"])
     phase_gt(data, n_frames)
 
     # PhotoBA: the JAX app test's protocol at full VGA width
@@ -2445,6 +2485,29 @@ def main():
 
     log(smi_line())
     log(json.dumps({"kernels": [{
+        "name": "fals_normals",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/fals_normals.cu",
+        "replaces": "gradient_sdf_tpu/ops/normals.py:144",
+        "launches": counted_in("fals_normals")[0],
+        "launches_counted_in": counted_in("fals_normals")[1],
+        "timed_on": "phase 3b: golden frame 5, window 11 (one launch: the "
+                    "frame's unit normals; box_filter_ms: the plain "
+                    "version's float64 box sums alone)",
+        **fstats["normals"],
+    }, {
+        "name": "track_compact",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/track_compact.cu",
+        "replaces": "gradient_sdf_tpu/models/tracker.py:162",
+        "also_replaces": "gradient_sdf_tpu/models/tracker.py:194 (the "
+                         "z-gate, and the compaction of :235-254)",
+        "launches": counted_in("track_compact")[0],
+        "launches_counted_in": counted_in("track_compact")[1],
+        "timed_on": "phase 4b: golden frame 5's depth at stride 1 (library: "
+                    "pts_cam[mask], nonzero + gather, with its host sync)",
+        **kstats["compact"],
+    }, {
         "name": "fuse_claim",
         "route": "cuda",
         "source": "gradient_sdf_tpu_torch/csrc/fuse_integrate.cu",

@@ -259,7 +259,9 @@ def _run(args, mesh) -> dict:
                 # live map config: capacity/directory may grow mid-run
                 res = tracker_mod.track_frame(
                     sdf_map.grid, depth, K, R_cur, t_cur,
-                    sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker)
+                    sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker,
+                    compact=sdf_map.track_buffer(depth.shape,
+                                                 cfg.tracker.sampling))
                 sync()
                 T.toc("Point optimization")
                 R_cur, t_cur = res.R, res.t

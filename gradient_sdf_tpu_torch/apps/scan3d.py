@@ -171,10 +171,13 @@ def run_scan(args, *, check_replicated: bool = False) -> dict:
 
 
 def _launch_counts():
-    from ..ops.kernels import (fuse_integrate, gn_track, merge_clear,
-                               raycast_march, scatter_add)
+    from ..ops.kernels import (fals_normals, fuse_integrate, gn_track,
+                               merge_clear, raycast_march, scatter_add,
+                               track_compact)
 
-    return {"fuse_claim": fuse_integrate.claim_launch_count,
+    return {"fals_normals": fals_normals.launch_count,
+            "track_compact": track_compact.launch_count,
+            "fuse_claim": fuse_integrate.claim_launch_count,
             "fuse_integrate": fuse_integrate.launch_count,
             "scatter_add": scatter_add.launch_count,
             "merge_clear": merge_clear.launch_count,
@@ -356,7 +359,8 @@ def _loop(args, mesh, check_replicated) -> dict:
                 res = tracker_mod.track_frame(
                     sdf_map.grid, depth, K, R_init, t_init,
                     sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker,
-                    mode=track_mode)
+                    mode=track_mode, compact=sdf_map.track_buffer(
+                        depth.shape, cfg.tracker.sampling))
             _sync(dev)
             entry["track_ms"] = T.toc("Point optimization") * 1e3
             entry["gn_iters"] = res.num_iters

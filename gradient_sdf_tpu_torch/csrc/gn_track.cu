@@ -12,7 +12,9 @@
 //     kClusterCtas CTAs x kThreads threads, launched with cudaLaunchKernelEx
 //     (its CTAs are co-scheduled, so a cluster barrier is safe, and each can
 //     read the others' shared memory). Per iteration, up to num_iterations:
-//     1. every thread walks its compacted depth points with the cluster's
+//     1. every thread walks its compacted depth points (as many as the
+//        count that the compaction, track_compact.cu, left in device
+//        memory: no host read between the two) with the cluster's
 //        thread count as stride, kBatch points at a time (their 12 loads
 //        issued before any is used): p = R x + t, the SDF query of MODE
 //        (GRAD: the nearest voxel's dist plus the stored gradient's
@@ -429,13 +431,17 @@ struct LoopShared {
 
 template <int MODE, int BS>
 __global__ void __launch_bounds__(kThreads)
-gn_track_loop(const float* __restrict__ pts, int64_t n, float* R, float* t,
-              Grid g, float* __restrict__ status, float* __restrict__ sums,
+gn_track_loop(const float* __restrict__ pts, int64_t n_cap,
+              const int* __restrict__ n_dev, float* R, float* t, Grid g,
+              float* __restrict__ status, float* __restrict__ sums,
               int num_iterations, int do_step, float damping, float conv_sq) {
   __shared__ LoopShared sh;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned int rank = cluster.block_rank();
   const int tid = threadIdx.x;
+  // the point count: the compaction's, in device memory, where it left one
+  const int64_t n_got = n_dev == nullptr ? n_cap : __ldg(n_dev);
+  const int64_t n = n_got < n_cap ? n_got : n_cap;
   if (tid < 9) sh.pose[tid] = R[tid];
   else if (tid < 12) sh.pose[tid] = t[tid - 9];
   __syncthreads();
@@ -586,15 +592,16 @@ int prepare_once(Kernel kernel, int& state) {
 int ready[5] = {0, 0, 0, 0, 0};
 
 template <int MODE, int BS>
-int launch_loop(cudaStream_t s, const float* p, int64_t n, float* R, float* t,
-                const Grid& g, float* status, float* sums, int num_iterations,
-                int do_step, float damping, float conv_sq) {
+int launch_loop(cudaStream_t s, const float* p, int64_t n, const int* n_dev,
+                float* R, float* t, const Grid& g, float* status, float* sums,
+                int num_iterations, int do_step, float damping,
+                float conv_sq) {
   const int rc = prepare_once(gn_track_loop<MODE, BS>,
                               ready[2 * MODE + (BS == 0)]);
   if (rc != 0) return rc;
   ClusterLaunch l(s);
   const cudaError_t e = cudaLaunchKernelEx(&l.cfg, gn_track_loop<MODE, BS>, p,
-                                           n, R, t, g, status, sums,
+                                           n, n_dev, R, t, g, status, sums,
                                            num_iterations, do_step, damping,
                                            conv_sq);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -607,7 +614,9 @@ int launch_loop(cudaStream_t s, const float* p, int64_t n, float* R, float* t,
 // synchronize, and returns cudaGetLastError() of the launch (0 = success),
 // or the error of the first-use check of the cluster shape.
 //
-// `pts` f32 [n, 3] (camera frame); `R` f32 [3, 3], `t` f32 [3] (the pose,
+// `pts` f32 [n, 3] (camera frame), of which the first *n_dev rows are the
+// points where `n_dev` (int32 [1], on the device: the compaction's count,
+// track_compact.cu) is not null, else all n; `R` f32 [3, 3], `t` f32 [3] (the pose,
 // on the device); `directory` i32 [dir_dim^3]; the five fields f32
 // [(slot_hi - slot_lo) * voxels_per_block] (the rows of slots
 // [slot_lo, slot_hi)); `mode` 0 is the gradient query, 1 the trilinear one.
@@ -616,7 +625,8 @@ int launch_loop(cudaStream_t s, const float* p, int64_t n, float* R, float* t,
 // unused. With do_step = 0: one residual pass, `sums` f32 [29] out (E, g(6),
 // H's upper triangle (21, row-major), count), R, t and `status` untouched.
 extern "C" int gsdf_gn_track_loop_f32(
-    const void* pts, int64_t n, void* R, void* t, const void* directory,
+    const void* pts, int64_t n, const void* n_dev, void* R, void* t,
+    const void* directory,
     const void* dist, const void* weight, const void* grad_x,
     const void* grad_y, const void* grad_z, void* status, void* sums,
     int mode, int dir_dim, int block_shape, int slot_lo, int slot_hi,
@@ -633,24 +643,25 @@ extern "C" int gsdf_gn_track_loop_f32(
             slot_hi, vs, grad_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pts);
+  const int* nd = static_cast<const int*>(n_dev);
   float* r = static_cast<float*>(R);
   float* tt = static_cast<float*>(t);
   float* st = static_cast<float*>(status);
   float* out = static_cast<float*>(sums);
   const bool fixed = block_shape == kFixedBlock;
   if (mode == kGrad)
-    return fixed ? launch_loop<kGrad, kFixedBlock>(s, p, n, r, tt, g, st, out,
+    return fixed ? launch_loop<kGrad, kFixedBlock>(s, p, n, nd, r, tt, g, st, out,
                                                    num_iterations, do_step,
                                                    damping, conv_sq)
-                 : launch_loop<kGrad, 0>(s, p, n, r, tt, g, st, out,
+                 : launch_loop<kGrad, 0>(s, p, n, nd, r, tt, g, st, out,
                                          num_iterations, do_step, damping,
                                          conv_sq);
   if (mode == kTrilinear)
-    return fixed ? launch_loop<kTrilinear, kFixedBlock>(s, p, n, r, tt, g, st,
+    return fixed ? launch_loop<kTrilinear, kFixedBlock>(s, p, n, nd, r, tt, g, st,
                                                         out, num_iterations,
                                                         do_step, damping,
                                                         conv_sq)
-                 : launch_loop<kTrilinear, 0>(s, p, n, r, tt, g, st, out,
+                 : launch_loop<kTrilinear, 0>(s, p, n, nd, r, tt, g, st, out,
                                               num_iterations, do_step, damping,
                                               conv_sq);
   return cudaErrorInvalidValue;

@@ -25,7 +25,7 @@ import torch
 from ..config import PipelineConfig
 from ..ops import fusion, normals, query
 from ..ops import voxel_grid as vg
-from ..ops.kernels import fuse_integrate
+from ..ops.kernels import fuse_integrate, track_compact
 from ..utils import device as device_mod
 from ..utils.logging_util import get_logger
 from ..utils.ply import save_mesh_ply, save_point_cloud_ply
@@ -49,6 +49,8 @@ class GradSdfMap:
         self.growth_events: list = []
         self.mesh = None  # set by attach_mesh for multi-device operation
         self.cache: Optional[normals.NormalEstimatorCache] = None
+        # the tracker's compaction buffer (`track_buffer`), one per camera
+        self._track_buf: Optional[track_compact.CompactBuffer] = None
         kf_words = max(1, -(-cfg.photo_ba.max_recorded_keyframes // 32))
         # uint32 bit patterns held in int32 (see fuse_integrate._kf_word_bit)
         self.vis = (
@@ -96,6 +98,17 @@ class GradSdfMap:
         if self.cache is None:
             self.cache = normals.build_cache(
                 width, height, K, self.cfg.fusion.normal_window, self.device)
+
+    def track_buffer(self, shape, sampling: int):
+        """The tracker's compaction buffer (`track_compact.new_buffer`) for
+        depth frames of `shape` (H, W) at stride `sampling` on the map's
+        device: allocated at the first frame and kept while the camera
+        stays the same; not saved state."""
+        if not track_compact.fits(self._track_buf, shape, sampling,
+                                  self.device):
+            self._track_buf = track_compact.new_buffer(shape, sampling,
+                                                       self.device)
+        return self._track_buf
 
     def _tensor(self, x):
         """numpy array or tensor -> f32 tensor on the map's device."""

@@ -30,13 +30,17 @@ of the same kernel over its shard, an all_reduce, and `gn_track.gn_step`.
 
 Depth-gating is pose-independent, so the valid pixels are compacted once
 before the loop, to exactly the depth-valid count (a dynamic shape);
-`TrackerConfig.compact_cap_frac` therefore has no effect here.
+`TrackerConfig.compact_cap_frac` therefore has no effect here. On the card
+the compaction is the hand-written kernel `ops/kernels/track_compact`,
+which leaves the count in device memory for the loop kernel: a tracked
+frame is two launches and one host sync, the status read. On the CPU, and
+on a mesh of ranks, it is `compact_points` (`pts_cam[mask]`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,7 +48,7 @@ import torch
 from ..config import FusionConfig, GridConfig, TrackerConfig
 from ..ops import query
 from ..ops import voxel_grid as vg
-from ..ops.kernels import gn_track
+from ..ops.kernels import gn_track, track_compact
 from ..utils import se3
 
 
@@ -150,27 +154,19 @@ def extrapolate_pose(R1, t1, R2, t2, alpha: float = 1.0):
 
 def backproject_grid(depth: torch.Tensor, K, sampling: int = 1):
     """Depth image -> camera-frame points [N,3] + depth [N] (:62-70);
-    `sampling` strides pixels like `optimize_sampled`."""
-    H, W = depth.shape
-    K = np.asarray(K, np.float32)
-    fx, fy = float(K[0, 0]), float(K[1, 1])
-    cx, cy = float(K[0, 2]), float(K[1, 2])
-    dev = depth.device
-    ys = torch.arange(0, H, sampling, dtype=torch.float32, device=dev)
-    xs = torch.arange(0, W, sampling, dtype=torch.float32, device=dev)
-    yg, xg = torch.meshgrid(ys, xs, indexing="ij")
-    z = depth[::sampling, ::sampling]
-    x0 = (xg - cx) / fx
-    y0 = (yg - cy) / fy
-    pts = torch.stack([x0 * z, y0 * z, z], dim=-1).reshape(-1, 3)
-    return pts, z.reshape(-1)
+    `sampling` strides pixels like `optimize_sampled`
+    (`track_compact.backproject`: true divisions on every device)."""
+    return track_compact.backproject(depth, K, sampling)
 
 
 def compact_points(depth: torch.Tensor, K, fcfg: FusionConfig,
                    tcfg: TrackerConfig) -> torch.Tensor:
-    """The frame's depth-valid camera-frame points [N, 3] (one host sync)."""
-    pts_cam, z = backproject_grid(depth, K, tcfg.sampling)
-    return pts_cam[(z > fcfg.z_min) & (z < fcfg.z_max)]
+    """The frame's depth-valid camera-frame points [N, 3], in row-major
+    pixel order (one host sync on the card): `track_compact.compact`, the
+    plain version of the compaction kernel, and the compaction of the CPU
+    path and of a mesh."""
+    return track_compact.compact(depth, K, fcfg.z_min, fcfg.z_max,
+                                 tcfg.sampling)
 
 
 def track_frame(
@@ -183,29 +179,50 @@ def track_frame(
     fcfg: FusionConfig,
     tcfg: TrackerConfig,
     mode: str = "grad",
+    compact: Optional[track_compact.CompactBuffer] = None,
 ) -> TrackResult:
     """Refine pose (R0, t0) against the current map for one depth frame:
-    the loop kernel on a CUDA map, the plain loop on the CPU (module
-    note)."""
+    the compaction and loop kernels on a CUDA map, then the status read
+    (`launch_track`), the plain loop on the CPU (module note). `compact`
+    is the caller's compaction buffer for such frames
+    (`GradSdfMap.track_buffer`); without it the card's path allocates one
+    for this call."""
     dev = depth.device
-    if dev.type == "cuda" and tcfg.num_iterations < 1:
-        # the JAX loop's condition is false at once: the start pose, not
-        # converged, no iteration, no residual (and no launch: the loop
-        # kernel takes at least one iteration)
-        R, t = _pose_copy(R0, t0, dev)
-        return TrackResult(R=R, t=t, converged=False, num_iters=0,
-                           energy=0.0, num_valid=0)
-    pts = compact_points(depth, K, fcfg, tcfg)
     if dev.type == "cuda":
-        R, t = _pose_copy(R0, t0, dev)
-        status = gn_track.gn_track(
-            pts, R, t, grid, gcfg, fcfg, mode=mode,
-            num_iterations=tcfg.num_iterations, damping=tcfg.damping,
-            conv_sq=tcfg.conv_threshold * tcfg.conv_threshold)
+        if tcfg.num_iterations < 1:
+            # the JAX loop's condition is false at once: the start pose,
+            # not converged, no iteration, no residual (and no launch: the
+            # loop kernel takes at least one iteration)
+            R, t = _pose_copy(R0, t0, dev)
+            return TrackResult(R=R, t=t, converged=False, num_iters=0,
+                               energy=0.0, num_valid=0)
+        R, t, status = launch_track(grid, depth, K, R0, t0, gcfg, fcfg, tcfg,
+                                    mode, compact)
         small, _, E, cnt, iters = status.tolist()
         return TrackResult(R=R, t=t, converged=small != 0.0,
                            num_iters=int(iters), energy=E, num_valid=int(cnt))
+    pts = compact_points(depth, K, fcfg, tcfg)
     return track_points_plain(grid, pts, R0, t0, gcfg, fcfg, tcfg, mode)
+
+
+def launch_track(grid, depth, K, R0, t0, gcfg: GridConfig, fcfg: FusionConfig,
+                 tcfg: TrackerConfig, mode: str = "grad",
+                 compact: Optional[track_compact.CompactBuffer] = None):
+    """`track_frame`'s work on the card, enqueued without a host sync: the
+    compaction kernel into `compact` (allocated if None), then the loop
+    kernel over its device-side count, from copies of (R0, t0). Returns
+    (R, t, status f32 [5]: small, bad, E, count, iterations); R and t hold
+    the refined pose once the launches have run.
+    `tcfg.num_iterations` must be >= 1."""
+    dev = depth.device
+    pts, count = track_compact.track_compact(
+        depth, K, fcfg.z_min, fcfg.z_max, tcfg.sampling, compact)
+    R, t = _pose_copy(R0, t0, dev)
+    status = gn_track.gn_track(
+        pts, R, t, grid, gcfg, fcfg, mode=mode,
+        num_iterations=tcfg.num_iterations, damping=tcfg.damping,
+        conv_sq=tcfg.conv_threshold * tcfg.conv_threshold, count=count)
+    return R, t, status
 
 
 def _pose_copy(R0, t0, dev):

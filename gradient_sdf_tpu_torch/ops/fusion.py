@@ -17,8 +17,10 @@ Port of `gradient_sdf_tpu/ops/fusion.py` (`MapGradPixelSdf::update`,
      (:108-116) — and zero the accumulator again, over the touched blocks
      only (an untouched row's accumulator is zero).
 
-`fuse_frame` runs steps 2-5 through `ops/kernels/fuse_integrate.py`: on
-the card two launches of its hand-written kernel and no host sync, the
+`fuse_frame` runs step 1 through `ops/kernels/fals_normals.py` (on the
+card one launch of its hand-written kernel) and steps 2-5 through
+`ops/kernels/fuse_integrate.py`: on the card two launches of its
+hand-written kernel and no host sync, the
 claim pass (gates, walk, lookup; it marks the samples whose block is
 missing, claims each such block for its lowest candidate and lists the
 tiles with a valid pixel) and the integrate-and-merge pass (the block claim's slot
@@ -27,8 +29,8 @@ their plain versions, with the block claim (`claim_blocks`, plain
 PyTorch) between them. Slot order is the JAX package's: the claim's
 winners are ordered by their global (pixel, k) candidate index.
 
-Host syncs per frame on the card: none. `GradSdfMap.update` adds one for
-the growth flags.
+A fused frame on the card: three kernel launches and the claim status's
+memset, no host sync. `GradSdfMap.update` adds one for the growth flags.
 
 `frame_samples`, `_alloc_slots`, `_scatter_samples` and
 `_merge_accumulators` are the same steps as plain tensor passes around the
@@ -55,6 +57,7 @@ from ..config import FusionConfig, GridConfig
 from . import voxel_grid as vg
 from .filters import median_blur
 from .kernels import fuse_integrate as fi
+from .kernels.fals_normals import fals_normals
 from .kernels.merge_clear import merge_clear
 from .kernels.scatter_add import new_accumulator as _new_rows
 from .kernels.scatter_add import scatter_add_fields
@@ -304,7 +307,7 @@ def fuse_frame(
     kernel's (`fuse_integrate.new_scratch(grid)`); without them they are
     allocated for this call. All tensors must be on the grid's device.
     """
-    normal_img = compute_normals(cache, depth).contiguous()
+    normal_img = fals_normals(cache, depth.contiguous())
     if fcfg.median_blur_depth:
         depth = median_blur(depth, 5)
     depth = depth.contiguous()

@@ -30,12 +30,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # flags for single sources. The march decides which voxel a probe reads by
 # rounding o + s*d, the GN residual pass which voxel a point reads by
 # rounding (R x + t) / vs, fusion's walk which voxel a sample lands in by
-# rounding ((z + k vs) R h + t) / vs: all three are built without fused
+# rounding ((z + k vs) R h + t) / vs; the FALS normals' 3x3 products decide
+# which pixels pass fusion's normal gates, and the tracker's compaction
+# writes the points the GN loop rounds: all five are built without fused
 # multiply-adds, so that each and its plain PyTorch version round alike (see
 # the notes in the sources).
 SOURCE_FLAGS = {"raycast_march.cu": ["-fmad=false"],
                 "gn_track.cu": ["-fmad=false"],
-                "fuse_integrate.cu": ["-fmad=false"]}
+                "fuse_integrate.cu": ["-fmad=false"],
+                "fals_normals.cu": ["-fmad=false"],
+                "track_compact.cu": ["-fmad=false"]}
 
 _lib = None
 build_seconds = None   # wall time of this process's build (0.0 if reused)
@@ -121,16 +125,29 @@ def _declare(lib):
     # stream: the empty cooperative launch at the integrate pass's grid
     lib.gsdf_fuse_coop_empty.argtypes = [vp]
     lib.gsdf_fuse_coop_empty.restype = ctypes.c_int
+    # depth, x0_n_sq_inv, y0_n_sq_inv, n_sq_inv, Q, out, b_out (or null);
+    # H, W, window; stream
+    lib.gsdf_fals_normals_f32.argtypes = [vp] * 7 + [ctypes.c_int] * 3 + [vp]
+    lib.gsdf_fals_normals_f32.restype = ctypes.c_int
+    # depth, H, W, sampling; fx, fy, cx, cy, z_min, z_max; pts, count,
+    # status, next_tile; epoch; stream
+    lib.gsdf_track_compact_f32.argtypes = (
+        [vp] + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [vp] * 4
+        + [ctypes.c_longlong, vp])
+    lib.gsdf_track_compact_f32.restype = ctypes.c_int
+    # H, W, sampling: the tiles (CTAs) of a launch
+    lib.gsdf_track_compact_tiles.argtypes = [ctypes.c_int] * 3
+    lib.gsdf_track_compact_tiles.restype = ctypes.c_int
 
 
 def declare_gn_track_loop(lib):
-    """The argument types of `gsdf_gn_track_loop_f32`: pts, n, R, t,
-    directory, five fields, status, sums; mode, dir_dim, block_shape,
-    slot_lo, slot_hi, num_iterations, do_step; vs, grad_scale, damping,
-    conv_sq; stream."""
+    """The argument types of `gsdf_gn_track_loop_f32`: pts, n, n_dev (or
+    null), R, t, directory, five fields, status, sums; mode, dir_dim,
+    block_shape, slot_lo, slot_hi, num_iterations, do_step; vs, grad_scale,
+    damping, conv_sq; stream."""
     vp = ctypes.c_void_p
     lib.gsdf_gn_track_loop_f32.argtypes = (
-        [vp, ctypes.c_int64] + [vp] * 10 + [ctypes.c_int] * 7
+        [vp, ctypes.c_int64] + [vp] * 11 + [ctypes.c_int] * 7
         + [ctypes.c_float] * 4 + [vp])
     lib.gsdf_gn_track_loop_f32.restype = ctypes.c_int
 

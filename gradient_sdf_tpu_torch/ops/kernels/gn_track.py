@@ -13,7 +13,9 @@ any(isnan(xi)), and where neither, (R, t) <- exp(-xi) (R, t).
 `gn_track` runs a frame's whole loop, up to `num_iterations` passes and
 steps, ending when `small` is set (a NaN step is skipped), with R and t
 updated in place and one status vector out (`STATUS`: small, bad, E, count,
-iterations): the one read the host makes per frame. `gn_residual_reduce`
+iterations): the one read the host makes per frame. On one card its points
+are `track_compact`'s buffer, and it reads their number where that kernel
+left it, in device memory (`count=`). `gn_residual_reduce`
 is one pass's sums (the same kernel with one iteration and no step) and
 `gn_step` one step from given sums, in place, with a 4-float status: the
 mesh runs those two around its all_reduce (`parallel/sharding.py`).
@@ -289,18 +291,21 @@ def _check_pass(pts, R, t, grid, gcfg, mode, slot_lo, slot_hi):
 
 def launch_loop(lib, pts, R, t, grid, gcfg, fcfg, *, mode, slot_lo,
                 slot_hi, num_iterations, do_step, damping, conv_sq, status,
-                sums):
+                sums, count=None):
     """One launch of `gsdf_gn_track_loop_f32` from `lib` (the package's
     library, or a build of another cluster shape), on the current stream,
     without checks or counting; raises if the launch fails. The scalars go
     to it rounded to float32, as PyTorch rounds a Python number that meets
-    a float32 tensor."""
+    a float32 tensor. `count` (int32 [1] on the device, or None): how many
+    of the rows of `pts` are points, read by the kernel."""
     dev = pts.device
     fields = (grid.dist, grid.weight, grid.grad_x, grid.grad_y, grid.grad_z)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gsdf_gn_track_loop_f32(
-            pts.data_ptr(), pts.shape[0], R.data_ptr(), t.data_ptr(),
+            pts.data_ptr(), pts.shape[0],
+            None if count is None else count.data_ptr(), R.data_ptr(),
+            t.data_ptr(),
             grid.directory.data_ptr(), *(f.data_ptr() for f in fields),
             None if status is None else status.data_ptr(),
             None if sums is None else sums.data_ptr(), MODES[mode],
@@ -316,17 +321,26 @@ def launch_loop(lib, pts, R, t, grid, gcfg, fcfg, *, mode, slot_lo,
 
 def gn_track(pts, R, t, grid: vg.VoxelGrid, gcfg: GridConfig,
              fcfg: FusionConfig, *, mode: str = "grad", num_iterations: int,
-             damping: float, conv_sq: float) -> torch.Tensor:
+             damping: float, conv_sq: float, count=None) -> torch.Tensor:
     """A frame's GN loop (module note) over the points `pts` (f32 [N, 3],
     camera frame) from the pose (R f32 [3, 3], t f32 [3]), which is updated
-    in place. Returns the status, f32 [5] on the points' device: small,
-    bad, E, count, iterations. On CUDA the kernel launches on the current
-    stream without synchronizing."""
+    in place. With `count` (int32 [1] on the points' device, e.g. from
+    `track_compact`) only the first `count` rows of `pts` are points; the
+    kernel reads it on the device. Returns the status, f32 [5] on the
+    points' device: small, bad, E, count, iterations. On CUDA the kernel
+    launches on the current stream without synchronizing."""
     if num_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {num_iterations}")
     slot_lo, slot_hi = _check_pass(pts, R, t, grid, gcfg, mode, 0, None)
     dev = pts.device
+    if count is not None and (count.dtype != torch.int32
+                              or count.numel() != 1 or count.device != dev):
+        raise ValueError(f"count must be one int32 on {dev}, got "
+                         f"{count.dtype} {tuple(count.shape)} on "
+                         f"{count.device}")
     if dev.type == "cpu":
+        if count is not None:
+            pts = pts[:int(count)]
         Rn, tn, status = gn_track_reference(
             pts, R, t, grid, gcfg, fcfg, mode=mode,
             num_iterations=num_iterations, damping=damping, conv_sq=conv_sq)
@@ -339,7 +353,7 @@ def gn_track(pts, R, t, grid: vg.VoxelGrid, gcfg: GridConfig,
     launch_loop(_build.load(), pts, R, t, grid, gcfg, fcfg, mode=mode,
                 slot_lo=slot_lo, slot_hi=slot_hi,
                 num_iterations=num_iterations, do_step=True, damping=damping,
-                conv_sq=conv_sq, status=status, sums=None)
+                conv_sq=conv_sq, status=status, sums=None, count=count)
     global loop_launch_count
     loop_launch_count += 1
     return status

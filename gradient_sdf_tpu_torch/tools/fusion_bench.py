@@ -595,6 +595,85 @@ def fuse_bounds(m, depth, R, t, misses, opened=0):
             "tiles": tiles}
 
 
+# FALS normals (`fals_normals`): a pixel reads its depth (4 B), rays (12 B)
+# and Q (24 B) and writes its normal (12 B); the separable window sums take
+# 2 x window float64 additions a channel, and the rest ~28 float32
+# operations (z_inv, 3 products, Q b, norm, 3 divisions). The card's float64
+# rate outside the tensor cores (H100 SXM data sheet)
+NORMALS_BYTES_PER_PIXEL = 52
+NORMALS_F32_OPS_PER_PIXEL = 28
+FP64_PER_S = 34e12
+
+
+def normals_bound_ms(pixels, window):
+    """(least ms, "bytes" or "operations") of one frame's FALS normals."""
+    b = pixels * NORMALS_BYTES_PER_PIXEL / MEM_BYTES_PER_S * 1e3
+    ops = (pixels * 3 * 2 * window / FP64_PER_S
+           + pixels * NORMALS_F32_OPS_PER_PIXEL / FP32_PER_S) * 1e3
+    return (b, "bytes") if b >= ops else (ops, "operations")
+
+
+def _ulps(a, b):
+    """Per element |a - b| in units in the last place (float32 bit patterns
+    as ordered integers), 0 where both are NaN."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+
+
+def normals_vs_plain(cache, depths, fcfg):
+    """`fals_normals` against its plain version on the card, frame by frame
+    (`depths` card tensors): per frame, the window sums b and the normals
+    (NaN where the plain version's are: compared as bits) as the count of
+    differing values and the largest difference in ulps, and the pixels
+    that pass fusion's gates (`fusion._pixel_rays`) with each: the count of
+    pixels gated otherwise. Returns [{...}] a frame."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
+
+    out = []
+    for depth in depths:
+        n, b = fn.fals_normals(cache, depth, with_sums=True)
+        n_ref, b_ref = fn.fals_normals_reference(cache, depth)
+        ub, un = _ulps(b, b_ref), _ulps(n, n_ref)
+        g = fusion._pixel_rays(depth, n, cache, fcfg).valid
+        g_ref = fusion._pixel_rays(depth, n_ref, cache, fcfg).valid
+        err = (n - n_ref).abs().nan_to_num(0.0).max()
+        out.append({"b_diff": int((ub > 0).sum()), "b_ulps": int(ub.max()),
+                    "max_abs_err": float(err),
+                    "n_diff": int((un > 0).sum()), "n_ulps": int(un.max()),
+                    "nan": int(torch.isnan(n_ref).any(-1).sum()),
+                    "gated": int(g_ref.sum()),
+                    "gate_diff": int((g != g_ref).sum())})
+    torch.cuda.synchronize()
+    return out
+
+
+def normals_times(cache, depth):
+    """Device ms of `fals_normals` on one frame beside its plain version
+    (`compute_normals`), the plain version's float64 box sums alone
+    (`normals.box_filter` on the stacked products), and its bound."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import normals
+    from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
+
+    z_inv = torch.where(depth != 0.0, 1.0 / depth, torch.zeros_like(depth))
+    img = torch.stack([cache.x0_n_sq_inv * z_inv, cache.y0_n_sq_inv * z_inv,
+                       cache.n_sq_inv * z_inv])
+    bound = normals_bound_ms(depth.numel(), cache.window)
+    return {"ms": median_ms(lambda: fn.fals_normals(cache, depth)),
+            "plain_ms": median_ms(lambda: normals.compute_normals(cache, depth)),
+            "box_filter_ms": median_ms(
+                lambda: normals.box_filter(img, cache.window)),
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
 STRUCTURE = ("directory", "coarse_occ", "block_coords", "num_active",
              "overflow", "oob_samples")
 
@@ -710,21 +789,22 @@ def count_fuse_frame(m, depth, R, t):
     """`fusion.fuse_frame` on the card for one frame of the map `m`
     (updated as the map's `update` would fuse it), with its launches and
     host syncs counted: each kernel's launch counter, the CUDA kernels,
-    memsets and copies under the profiler, the calls of
-    `voxel_grid.insert_new` and `fusion.claim_blocks`, and the syncs at a
-    line of `fusion.fuse_frame`, inside `voxel_grid.insert_new`, and
-    anywhere else (`track_bench.count_syncs`)."""
+    memsets and copies under the profiler and its `nonzero` calls, the
+    calls of `voxel_grid.insert_new` and `fusion.claim_blocks`, and the
+    syncs at a line of `fusion.fuse_frame`, inside `voxel_grid.insert_new`,
+    and anywhere else (`track_bench.count_syncs`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gradient_sdf_tpu_torch.ops import fusion
     from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
     from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
     from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
     from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
     from gradient_sdf_tpu_torch.tools.track_bench import _lines, count_syncs
 
-    for mod in (fi, mc, sa):
+    for mod in (fn, fi, mc, sa):
         mod.reset_launch_count()
     calls = {"insert_new": 0, "claim_blocks": 0}
     real = {"insert_new": vg.insert_new, "claim_blocks": fusion.claim_blocks}
@@ -744,7 +824,8 @@ def count_fuse_frame(m, depth, R, t):
     vg.insert_new = counting("insert_new")
     fusion.claim_blocks = counting("claim_blocks")
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             _, syncs = count_syncs(fuse)
             torch.cuda.synchronize()
     finally:
@@ -754,14 +835,23 @@ def count_fuse_frame(m, depth, R, t):
              "insert_new": _lines(real["insert_new"])}
     n = {k: sum(f == file and line in lines for f, line, _ in syncs)
          for k, (file, lines) in where.items()}
-    return {"claim": fi.claim_launch_count, "integrate": fi.launch_count,
+    return {"normals": fn.launch_count, "claim": fi.claim_launch_count,
+            "integrate": fi.launch_count,
             "scatter_add": sa.launch_count, "merge_clear": mc.launch_count,
             "device_ops": sum(e.count for e in prof.key_averages()
                               if e.device_type == DeviceType.CUDA),
+            "nonzero": nonzero_calls(prof),
             "status_syncs": n["status"], "insert_syncs": n["insert_new"],
             "other_syncs": len(syncs) - sum(n.values()),
             "insert_calls": calls["insert_new"],
             "claim_blocks_calls": calls["claim_blocks"]}
+
+
+def nonzero_calls(prof):
+    """The `nonzero` calls (`aten::nonzero`, and `nonzero_static`) a
+    profiler with CPU activity recorded."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("aten::nonzero"))
 
 
 def fuse_frames_without_sync(m, depths, poses):
@@ -790,7 +880,8 @@ def fuse_parts(m, depth, R, t):
     """The imported package's single-card `fuse_frame` (no visibility
     bits, the map's accumulator) written out as [(part, fn)], run in
     order; the map's grid is updated as `fuse_frame` would. The package
-    with `ops/kernels/fuse_integrate.py` takes its path: normals, claim
+    with `ops/kernels/fuse_integrate.py` takes its path: normals (the
+    `fals_normals` kernel where the package has it), claim
     pass, integrate-and-merge launch (which claims the blocks), or, before
     the claim moved onto the card, normals, claim pass and status read,
     block claim, integrate-and-merge launch; an earlier one the plain walk
@@ -806,8 +897,15 @@ def fuse_parts(m, depth, R, t):
     gcfg, fcfg = m.cfg.grid, m.cfg.fusion
     st = {}
 
+    if importlib.util.find_spec(
+            "gradient_sdf_tpu_torch.ops.kernels.fals_normals") is not None:
+        from gradient_sdf_tpu_torch.ops.kernels.fals_normals import (
+            fals_normals as normals_of)
+    else:
+        normals_of = fusion.compute_normals
+
     def normals():
-        st["nrm"] = fusion.compute_normals(m.cache, depth)
+        st["nrm"] = normals_of(m.cache, depth)
 
     if importlib.util.find_spec(
             "gradient_sdf_tpu_torch.ops.kernels.fuse_integrate") is not None:

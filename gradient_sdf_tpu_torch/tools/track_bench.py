@@ -18,13 +18,16 @@ E and count those sums', its pose and flags `gn_step`'s on them bit for
 bit, and `gn_step_reference`'s: the flags exactly, R and t within
 `step_tol`, from the float64 condition number of the system); then the
 full loop run twice, each equal bit for bit to the chain of those
-single-iteration runs. Then it tracks the frame in turns through
-`track_frame` (the loop kernel), the plain loop with the packed rows and
-the plain loop without them (kernel, packed, unpacked, unpacked, packed,
-kernel): track_ms, GN iterations (equal, except where the step that stops
-one loop lies within a factor 2 of the stopping threshold), launches and
-host syncs of the kernel's path (one launch, and the compaction's and the
-status's read), and the poses' largest difference.
+single-iteration runs. It holds the compaction kernel `track_compact` to
+`compact_points` (count and points bit for bit). Then it tracks the frame
+in turns through `track_frame` (the compaction and loop kernels, into the
+map's buffer), the plain loop with the packed rows and the plain loop
+without them (kernel, packed, unpacked, unpacked, packed, kernel):
+track_ms, GN iterations (equal, except where the step that stops one loop
+lies within a factor 2 of the stopping threshold), launches, `nonzero`
+calls and host syncs of the kernels' path (one launch each, no `nonzero`,
+the status's read alone), `launch_track` under PyTorch's sync debug mode
+"error" (no sync, the same pose), and the poses' largest difference.
 On frame 5 it holds `gn_step` to its plain version on crafted systems (a
 normal step, zero residuals, a single plane, a NaN and an inf in g, a
 rotation inside the Taylor branch), and times with CUDA events the loop
@@ -34,7 +37,10 @@ its bound (bytes: the points, and each distinct 32-byte sector of the
 directory and the fields that any iteration's residuals read, once;
 operations: every iteration's pass at the issue rates of `raycast_bench`,
 and its step) and its plain version; the one-pass launch and `gn_step`
-beside theirs, and `torch.linalg.solve_ex` on the 6x6 alone. A full frame
+beside theirs, and `torch.linalg.solve_ex` on the 6x6 alone; and the
+compaction kernel beside its bound (4 B of depth a strided pixel, 12 B a
+kept point), its plain version and `pts_cam[mask]` alone (the library
+call: `nonzero` and the gather, with their host sync). A full frame
 follows, tracked, held and timed the same way: the golden frames before a
 backdrop (`FULL_BACKDROP`), all 307,200 pixels of frame 5 valid.
 
@@ -430,16 +436,20 @@ def _lines(fn):
     return inspect.getsourcefile(fn), range(first, first + len(src))
 
 
-def count_kernel_path(grid, depth, K, R, t, gcfg, fcfg, tcfg):
+def count_kernel_path(grid, depth, K, R, t, gcfg, fcfg, tcfg, compact=None):
     """`track_frame` on the card (untimed, after one uncounted call), with
-    its launches, `_pack_fields` calls and host syncs counted: those at a
-    line of `tracker.compact_points` (the frame's compaction), of the rest
-    of `tracker.track_frame` (the status read), at another line of the port
-    and with no line of the port on the stack (`count_syncs`). Returns
-    (result, counts)."""
+    its launches, `nonzero` calls (the profiler), `_pack_fields` calls and
+    host syncs counted: those at a line of `track_compact.compact` (the
+    plain compaction), of `tracker.launch_track` (the compaction kernel and
+    the loop kernel), of the rest of `tracker.track_frame` (the status
+    read), at another line of the port and with no line of the port on the
+    stack (`count_syncs`). Returns (result, counts)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from gradient_sdf_tpu_torch.models import tracker
     from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
+    from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
+    from gradient_sdf_tpu_torch.tools.fusion_bench import nonzero_calls
 
     packs = []
     real = tracker._pack_fields
@@ -450,13 +460,16 @@ def count_kernel_path(grid, depth, K, R, t, gcfg, fcfg, tcfg):
 
     tracker._pack_fields = counting
     gt.reset_launch_count()
+    tc.reset_launch_count()
     torch.cuda.synchronize()
     try:
-        res, syncs = count_syncs(lambda: tracker.track_frame(
-            grid, depth, K, R, t, gcfg, fcfg, tcfg))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            res, syncs = count_syncs(lambda: tracker.track_frame(
+                grid, depth, K, R, t, gcfg, fcfg, tcfg, compact=compact))
     finally:
         tracker._pack_fields = real
-    where = {"compaction": _lines(tracker.compact_points),
+    where = {"compaction": _lines(tc.compact),
+             "launch": _lines(tracker.launch_track),
              "status": _lines(tracker.track_frame)}
     port = [(f, l) for f, l, mine in syncs if mine]
     n = {k: sum(f == file and l in lines for f, l in port)
@@ -465,10 +478,12 @@ def count_kernel_path(grid, depth, K, R, t, gcfg, fcfg, tcfg):
                     if not any(f == file and line in lines
                                for file, lines in where.values())})
     outside = sorted({f"{f}:{line}" for f, line, mine in syncs if not mine})
-    return res, {"loop": gt.loop_launch_count, "reduce": gt.launch_count,
+    return res, {"compact": tc.launch_count, "loop": gt.loop_launch_count,
+                 "reduce": gt.launch_count,
                  "step": gt.step_launch_count, "packs": len(packs),
+                 "nonzero": nonzero_calls(prof),
                  "status_syncs": n["status"],
-                 "compaction_syncs": n["compaction"],
+                 "compaction_syncs": n["compaction"] + n["launch"],
                  "other_syncs": len(port) - sum(n.values()),
                  "other_where": other,
                  "outside_syncs": len(syncs) - len(port),
@@ -634,6 +649,72 @@ def time_frame(grid, pts, R0, t0, gcfg, fcfg, tcfg, st, smi, what):
     return out
 
 
+def compact_vs_plain(depth, K, fcfg, tcfg, buf):
+    """The compaction kernel into `buf` against `tracker.compact_points` on
+    the card: (count, whether the count and the points are equal bit for
+    bit)."""
+    import torch
+    from gradient_sdf_tpu_torch.models import tracker
+    from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
+
+    pts, count = tc.track_compact(depth, K, fcfg.z_min, fcfg.z_max,
+                                  tcfg.sampling, buf)
+    want = tracker.compact_points(depth, K, fcfg, tcfg)
+    n = int(count)
+    return n, n == want.shape[0] and torch.equal(pts[:n], want)
+
+
+def launch_without_sync(grid, depth, K, R, t, gcfg, fcfg, tcfg, buf):
+    """`tracker.launch_track` (the compaction and loop kernels) under
+    PyTorch's sync debug mode "error", which raises at any host sync; the
+    status is read after. Returns (R, t, status list)."""
+    import torch
+    from gradient_sdf_tpu_torch.models import tracker
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Rn, tn, status = tracker.launch_track(grid, depth, K, R, t, gcfg,
+                                              fcfg, tcfg, compact=buf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return Rn, tn, status.tolist()
+
+
+def compact_bound_ms(strided: int, kept: int) -> tuple:
+    """(least ms, "bytes") of one compaction: 4 B of depth a strided pixel
+    read, 12 B a kept point and the 4-byte count written (its operations,
+    two compares a pixel and six float32 operations a point, take far
+    less)."""
+    from gradient_sdf_tpu_torch.tools.raycast_bench import MEM_BYTES_PER_S
+
+    return (4 * strided + 12 * kept + 4) / MEM_BYTES_PER_S * 1e3, "bytes"
+
+
+def compact_times(depth, K, fcfg, tcfg, buf):
+    """Device ms of the compaction kernel on one frame beside its plain
+    version (`track_compact_reference`: backprojection, `pts_cam[mask]`
+    and the copy into a buffer, its host sync timed with it), the library
+    call `pts_cam[mask]` alone (`nonzero` and the gather, with its sync),
+    and its bound."""
+    from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
+    from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
+
+    args = (depth, K, fcfg.z_min, fcfg.z_max)
+    ref = tc.new_buffer(depth.shape, tcfg.sampling, depth.device)
+    pts_cam, z = tc.backproject(depth, K, tcfg.sampling)
+    mask = (z > fcfg.z_min) & (z < fcfg.z_max)
+    kept = int(mask.sum())
+    bound = compact_bound_ms(z.numel(), kept)
+    return {"ms": event_ms(lambda: tc.track_compact(*args, tcfg.sampling,
+                                                    buf)),
+            "plain_ms": median_ms(lambda: tc.track_compact_reference(
+                *args, ref)),
+            "library_ms": median_ms(lambda: pts_cam[mask]),
+            "bound_ms": bound[0], "bound_by": bound[1], "points": kept,
+            "pixels": z.numel()}
+
+
 def iteration_edge(st, conv_sq, k_kernel, k_plain) -> bool:
     """Whether two loops that ran k_kernel and k_plain iterations part at a
     step within ITER_EDGE_FACTOR of the threshold (`check_loop`'s xi^2 at
@@ -646,26 +727,31 @@ def iteration_edge(st, conv_sq, k_kernel, k_plain) -> bool:
 
 
 def track_turns(what, grid, depth, K, R, t, gcfg, fcfg, tcfg, st_grad,
-                n_turns=2):
-    """`track_frame` through the loop kernel and the plain loop with and
-    without packed rows, in turns; the launches and syncs of the kernel's
-    path. Returns (kernel's result, stats); raises on a mismatch."""
+                n_turns=2, compact=None):
+    """`track_frame` through the compaction and loop kernels (into the
+    buffer `compact`) and the plain loop with and without packed rows, in
+    turns; the launches and syncs of the kernels' path. Returns (kernel's
+    result, stats); raises on a mismatch."""
     import torch
     from gradient_sdf_tpu_torch.models import tracker
 
     unpacked = dataclasses.replace(tcfg, packed_row_gather=False)
-    res, counts = count_kernel_path(grid, depth, K, R, t, gcfg, fcfg, tcfg)
-    if not (counts["loop"] == 1 and counts["reduce"] == counts["step"] == 0
-            and counts["status_syncs"] == counts["compaction_syncs"] == 1
+    res, counts = count_kernel_path(grid, depth, K, R, t, gcfg, fcfg, tcfg,
+                                    compact)
+    if not (counts["compact"] == counts["loop"] == 1
+            and counts["reduce"] == counts["step"] == 0
+            and counts["status_syncs"] == 1
+            and counts["compaction_syncs"] == counts["nonzero"] == 0
             and counts["other_syncs"] == counts["outside_syncs"] == 0
             and counts["packs"] == 0):
         raise AssertionError(
-            f"{what}: the kernel's path made {counts} for {res.num_iters} GN "
-            f"iterations; want one launch of the loop kernel, the "
-            f"compaction's and the status's host reads, no pack")
+            f"{what}: the kernels' path made {counts} for {res.num_iters} GN "
+            f"iterations; want one launch of the compaction kernel and one of "
+            f"the loop kernel, no nonzero, the status's host read alone, no "
+            f"pack")
     paths = {
         "kernel": lambda: tracker.track_frame(grid, depth, K, R, t, gcfg, fcfg,
-                                              tcfg),
+                                              tcfg, compact=compact),
         "packed": lambda: tracker.track_points_plain(
             grid, tracker.compact_points(depth, K, fcfg, tcfg), R, t, gcfg,
             fcfg, tcfg),
@@ -754,6 +840,7 @@ def golden_phase(depths, K, smi, at_last=None):
     m = GradSdfMap(cfg, device=dev)
     R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
     gcfg, fcfg, tcfg = m.cfg.grid, m.cfg.fusion, cfg.tracker
+    buf = m.track_buffer(depths[0].shape, tcfg.sampling)
     ms = {"kernel": [], "packed": [], "unpacked": []}
     worst = {"sum_err": 0.0, "sum_rel": 0.0, "step_err": 0.0, "pose": 0.0,
              "pack": 0.0, "flag_edge": 0, "iter_edges": 0}
@@ -763,6 +850,10 @@ def golden_phase(depths, K, smi, at_last=None):
             m.update(depth, K, (R, t))
             continue
         pts = tracker.compact_points(depth, K, fcfg, tcfg)
+        n_kept, same = compact_vs_plain(depth, K, fcfg, tcfg, buf)
+        if not same:
+            raise AssertionError(f"golden frame {i}: the compaction kernel's "
+                                 f"{n_kept} points differ from compact_points'")
         checked = {}
         for mode in ("grad", "trilinear"):
             st, _, _ = check_loop(m.grid, pts, R, t, gcfg, fcfg, tcfg, mode)
@@ -772,7 +863,13 @@ def golden_phase(depths, K, smi, at_last=None):
             worst["flag_edge"] += st["flag_edge"]
         st = checked["grad"]
         a, tr = track_turns(f"golden frame {i}", m.grid, depth, K, R, t, gcfg,
-                            fcfg, tcfg, st)
+                            fcfg, tcfg, st, compact=buf)
+        Rn, tn, status = launch_without_sync(m.grid, depth, K, R, t, gcfg,
+                                             fcfg, tcfg, buf)
+        if not (torch.equal(Rn, a.R) and torch.equal(tn, a.t)
+                and int(status[4]) == a.num_iters):
+            raise AssertionError(f"golden frame {i}: launch_track without a "
+                                 f"sync differs from track_frame")
         worst["pose"] = max(worst["pose"], tr["path_diff"])
         worst["pack"] = max(worst["pack"], tr["pack_diff"])
         worst["iter_edges"] += tr["iter_edges"]
@@ -784,13 +881,17 @@ def golden_phase(depths, K, smi, at_last=None):
             f"{' / '.join(f'{x:.3f}' for x in tr['ms']['kernel'])}, plain packed "
             f"{' / '.join(f'{x:.2f}' for x in tr['ms']['packed'])}, plain unpacked "
             f"{' / '.join(f'{x:.2f}' for x in tr['ms']['unpacked'])}; GN iters "
-            f"{tr['iters']}; kernel's path: {c['loop']} gn_track_loop, "
-            f"{c['reduce']} one-pass and {c['step']} gn_step launches, host "
+            f"{tr['iters']}; kernels' path: {c['compact']} track_compact "
+            f"({n_kept} points = compact_points' bit for bit), "
+            f"{c['loop']} gn_track_loop, "
+            f"{c['reduce']} one-pass and {c['step']} gn_step launches, "
+            f"{c['nonzero']} nonzero calls, host "
             f"syncs {c['compaction_syncs']} in the compaction + "
             f"{c['status_syncs']} status read + {c['other_syncs']} elsewhere "
             f"in the port {c['other_where']} (+{c['outside_syncs']} with no "
             f"line of the port on the stack {c['outside_where']}), "
-            f"{c['packs']} _pack_fields calls; checked "
+            f"{c['packs']} _pack_fields calls; launch_track under sync debug "
+            f"mode \"error\": no sync, the same pose and iterations; checked "
             f"loop, grad: {st['iters']} iterations, count {st['count']}, sums "
             f"max |err| {st['sum_err']:.3g} ({st['sum_rel']:.3g} of the terms' "
             f"magnitudes), step max |err| {st['step_err']:.3g} (tolerance "
@@ -805,6 +906,13 @@ def golden_phase(depths, K, smi, at_last=None):
             crafted_err, seen = check_crafted(dev, R, t)
             times = time_frame(m.grid, pts, R, t, gcfg, fcfg, tcfg, st, smi,
                                f"golden frame {i}")
+            ctimes = compact_times(depth, K, fcfg, tcfg, buf)
+            log(f"phase4b golden frame {i} compaction ({ctimes['points']} of "
+                f"{ctimes['pixels']} pixels kept): track_compact "
+                f"{ctimes['ms']:.4f} ms (bound {ctimes['bound_ms']:.5f}, "
+                f"bytes; plain track_compact_reference with its sync "
+                f"{ctimes['plain_ms']:.4f}; pts_cam[mask] alone with its "
+                f"sync {ctimes['library_ms']:.4f}) [{smi}]")
             if at_last:
                 at_last(m.grid, pts, R, t, gcfg, fcfg, tcfg)
         R, t = a.R, a.t
@@ -827,8 +935,9 @@ def golden_phase(depths, K, smi, at_last=None):
     log(f"phase4b track_ms on golden frames 1-{len(depths) - 1}, in turns: "
         f"loop kernel mean {mean['kernel']:.3f} ms, plain loop with packed "
         f"rows {mean['packed']:.2f}, without {mean['unpacked']:.2f}; "
-        f"{iters_total} GN iterations in {len(depths) - 1} launches and "
-        f"{len(depths) - 1} status reads; poses differ by at most "
+        f"{iters_total} GN iterations in {len(depths) - 1} loop launches, "
+        f"{len(depths) - 1} compaction launches and {len(depths) - 1} status "
+        f"reads; poses differ by at most "
         f"{worst['pose']:.3g} between the kernel's path and the plain loop "
         f"(limit {PATH_POSE_TOL}) and {worst['pack']:.3g} between the plain "
         f"loop with and without packed rows (limit {PACK_POSE_TOL}); "
@@ -843,6 +952,11 @@ def golden_phase(depths, K, smi, at_last=None):
     sums_err = worst["sum_err"]
     return {
         "track_ms": mean, "iterations": iters_total, "frame5": times,
+        "compact": {"max_abs_err": 0.0, "ms": ctimes["ms"],
+                    "plain_ms": ctimes["plain_ms"],
+                    "bound_ms": ctimes["bound_ms"],
+                    "bound_by": ctimes["bound_by"],
+                    "library_ms": ctimes["library_ms"]},
         "loop": {"max_abs_err": max(sums_err, worst["step_err"]),
                  "ms": times["loop_ms"], "plain_ms": times["loop_plain_ms"],
                  "bound_ms": times["loop_bound"]["bound_ms"],
@@ -899,7 +1013,8 @@ def full_phase(dev, smi):
     pts = tracker.compact_points(depth, K, fcfg, tcfg)
     st, _, _ = check_loop(m.grid, pts, R, t, gcfg, fcfg, tcfg)
     _, tr = track_turns("the full frame", m.grid, depth, K, R, t, gcfg, fcfg,
-                        tcfg, st)
+                        tcfg, st,
+                        compact=m.track_buffer(depth.shape, tcfg.sampling))
     log(f"phase4b full frame (the golden spheres before a backdrop, "
         f"{pts.shape[0]} of "
         f"{depth.numel()} pixels valid): track_ms kernel "
@@ -967,9 +1082,12 @@ def tree_frames():
                     sums, Rs, ts, status, damping=tcfg.damping,
                     conv_sq=conv_sq))}
 
-    def track(grid, depth, R, t, gcfg, fcfg, tcfg):
+    def track(grid, depth, R, t, gcfg, fcfg, tcfg, m):
+        # the map's compaction buffer, where the tree has one (as its app)
+        kw = ({"compact": m.track_buffer(depth.shape, tcfg.sampling)}
+              if hasattr(m, "track_buffer") else {})
         runs = [timed(lambda: tracker.track_frame(grid, depth, K, R, t, gcfg,
-                                                  fcfg, tcfg))
+                                                  fcfg, tcfg, **kw))
                 for _ in range(4)]
         return runs[0][0], [x for _, x in runs[1:]]
 
@@ -979,7 +1097,7 @@ def tree_frames():
     m.update(dd[0], K, (R, t))
     out = {"golden": []}
     for i in range(1, len(dd)):
-        res, ms = track(m.grid, dd[i], R, t, gcfg, fcfg, tcfg)
+        res, ms = track(m.grid, dd[i], R, t, gcfg, fcfg, tcfg, m)
         out["golden"].append({"frame": i, "ms": ms, "iters": res.num_iters})
         if i == len(dd) - 1:
             out["frame5"] = kernels(m.grid, dd[i], R, t, gcfg, fcfg, tcfg)
@@ -988,7 +1106,7 @@ def tree_frames():
             m.update(dd[i], K, (R, t))
     del m
     fm, depth, K, (R, t) = full_frame_setup(dev)
-    res, ms = track(fm.grid, depth, R, t, gcfg, fcfg, tcfg)
+    res, ms = track(fm.grid, depth, R, t, gcfg, fcfg, tcfg, fm)
     out["full"] = {"ms": ms, "iters": res.num_iters,
                    **kernels(fm.grid, depth, R, t, gcfg, fcfg, tcfg)}
     _build.load()

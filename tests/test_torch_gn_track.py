@@ -448,8 +448,8 @@ def test_cuda_gn_kernels_match_plain(setup, mode):
     assert sp.tolist()[4] == full[0][0].tolist()[4] <= 4
     assert float((Rp - R).abs().max()) <= POSE_TOL
     assert float((tp - t).abs().max()) <= POSE_TOL
-    # track_frame compacts the points on the card (its backprojection
-    # rounds otherwise than the CPU's): the loop kernel on those points
+    # track_frame compacts the points on the card (the compaction kernel,
+    # bit for bit compact_points' points there): the loop kernel on those
     depth = torch.from_numpy(depths[4]).cuda()
     Rc, tc = R0.clone(), t0.clone()
     st = gt.gn_track(ttr.compact_points(depth, K, FCFG, tcfg), Rc, tc, cg, GCFG,
