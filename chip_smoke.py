@@ -63,8 +63,10 @@ yardstick, on golden frame 5's real samples and, for the march, on the
 render scene's rays, for the GN kernels on golden frame 5's points (the
 loop kernel per frame from its start pose; `torch.linalg.solve_ex` on the
 6x6 as the step's yardstick); phase 2b also times an empty kernel, the
-launch floor beside `merge_clear`, and phase 4b beside the GN kernels; and
-last
+launch floor beside `merge_clear`, phase 4b beside the GN kernels and the
+compaction kernel, and phase 3b beside the normals kernel (each an empty
+kernel at that kernel's launch, `launch_floor_ms`, with `host_us`, the host
+microseconds a wrapper call takes); and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -631,7 +633,9 @@ def phase_fuse_integrate(smi):
         f"{[r['nan'] for r in nres]}, the same), fusion's gated pixels "
         f"{[r['gated'] for r in nres]}, {sum(r['gate_diff'] for r in nres)} "
         f"gated otherwise; frame 5 [{smi}]: kernel {ntimes['ms']:.4f} ms "
-        f"(bound {ntimes['bound_ms']:.5f}, {ntimes['bound_by']}; plain "
+        f"(launch floor {ntimes['launch_floor_ms']:.4f}, host "
+        f"{ntimes['host_us']:.1f} us a call; bound "
+        f"{ntimes['bound_ms']:.5f}, {ntimes['bound_by']}; plain "
         f"compute_normals {ntimes['plain_ms']:.4f}, of which its float64 "
         f"box_filter {ntimes['box_filter_ms']:.4f}; no single library call)")
     times = {}

@@ -129,6 +129,9 @@ def _declare(lib):
     # H, W, window; stream
     lib.gsdf_fals_normals_f32.argtypes = [vp] * 7 + [ctypes.c_int] * 3 + [vp]
     lib.gsdf_fals_normals_f32.restype = ctypes.c_int
+    # H, W, window, stream: the empty kernel at the normals' launch
+    lib.gsdf_fals_normals_empty.argtypes = [ctypes.c_int] * 3 + [vp]
+    lib.gsdf_fals_normals_empty.restype = ctypes.c_int
     # depth, H, W, sampling; fx, fy, cx, cy, z_min, z_max; pts, count,
     # status, next_tile; epoch; stream
     lib.gsdf_track_compact_f32.argtypes = (
@@ -138,6 +141,9 @@ def _declare(lib):
     # H, W, sampling: the tiles (CTAs) of a launch
     lib.gsdf_track_compact_tiles.argtypes = [ctypes.c_int] * 3
     lib.gsdf_track_compact_tiles.restype = ctypes.c_int
+    # H, W, sampling, stream: the empty kernel at the compaction's launch
+    lib.gsdf_track_compact_empty.argtypes = [ctypes.c_int] * 3 + [vp]
+    lib.gsdf_track_compact_empty.restype = ctypes.c_int
 
 
 def declare_gn_track_loop(lib):

@@ -10,8 +10,9 @@ drop.
 The JAX package computes this in `gradient_sdf_tpu/ops/normals.py::
 compute_normals` as XLA-fused passes around banded matrix products; it has
 no TPU kernel. On the card it is the hand-written CUDA of
-`csrc/fals_normals.cu` (see the note there: one CTA a 32 x 16 tile, the
-halo in shared memory, separable float64 sums, built without fused
+`csrc/fals_normals.cu` (see the note there: one CTA a 64 x 16 tile, 300
+CTAs a VGA frame in one wave, the halo in shared memory converted to
+float64 once, separable running float64 sums, built without fused
 multiply-adds so that its normals are the plain version's bit for bit): on
 a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
 it takes the plain version, `ops/normals.compute_normals` (and

@@ -10,14 +10,16 @@ TPU kernel. The plain PyTorch form, `pts_cam[mask]`
 kept pixels before the gather: one host sync a frame.
 
 On the card it is the hand-written CUDA of `csrc/track_compact.cu` (see the
-note there: a CTA a tile of 2048 pixels, a single-pass scan with decoupled
-look-back, in pixel order): the points go into a buffer allocated once per
+note there: a CTA a tile of up to 4 whole strided rows, 120 tiles a VGA
+frame, a single-pass scan with decoupled look-back that resolves in one read
+of 128 status words for up to 129 tiles, the points written in 16-byte
+stores, in pixel order): the points go into a buffer allocated once per
 camera and map (`new_buffer`, with the scan's status words) and their
 number into device memory, where the GN loop kernel reads it
-(`gn_track.gn_track(..., count=)`). On a CUDA tensor the
-wrapper launches that kernel or raises; on a CPU tensor it takes the plain
-version, `track_compact_reference`, which writes `pts_cam[mask]` into the
-same buffer.
+(`gn_track.gn_track(..., count=)`). On a CUDA tensor the wrapper launches
+that kernel or raises; on a CPU tensor it takes the plain version,
+`track_compact_reference`, which writes `pts_cam[mask]` into the same
+buffer.
 
 The divisions by fx and fy are true IEEE divisions on every device
 (`backproject`), as the JAX package computes them when eager, and the
@@ -39,8 +41,11 @@ def reset_launch_count():
     launch_count = 0
 
 
-# strided pixels a CTA of the kernel takes (csrc/track_compact.cu's kTile)
-TILE_PIXELS = 2048
+# a CTA of the kernel takes min(TILE_ROWS, TILE_CAPACITY // cols) whole
+# strided rows of `cols` pixels (csrc/track_compact.cu's kTileRows and
+# kCapacity)
+TILE_ROWS = 4
+TILE_CAPACITY = 3072
 # the kernel's epochs lie in [1, EPOCHS]
 EPOCHS = 2**30 - 1
 
@@ -49,6 +54,14 @@ def strided_shape(shape, sampling: int) -> tuple:
     """(rows, cols) of the pixels a stride of `sampling` keeps."""
     H, W = shape
     return -(-H // sampling), -(-W // sampling)
+
+
+def tile_count(shape, sampling: int) -> int:
+    """The kernel's tiles (CTAs, status words) for frames of `shape` (H,
+    W) at `sampling`."""
+    rows, cols = strided_shape(shape, sampling)
+    per_tile = max(1, min(TILE_ROWS, TILE_CAPACITY // cols))
+    return -(-rows // per_tile)
 
 
 class CompactBuffer:
@@ -63,8 +76,8 @@ class CompactBuffer:
         self.shape, self.sampling = tuple(shape), int(sampling)
         self.pts = torch.empty((n, 3), dtype=torch.float32, device=device)
         self.count = torch.zeros(1, dtype=torch.int32, device=device)
-        self.status = torch.zeros(-(-n // TILE_PIXELS), dtype=torch.int64,
-                                  device=device)
+        self.status = torch.zeros(tile_count(shape, sampling),
+                                  dtype=torch.int64, device=device)
         self.next_tile = torch.zeros(1, dtype=torch.int32, device=device)
         self.launches = 0
 
@@ -150,7 +163,10 @@ def track_compact(depth: torch.Tensor, K, z_min: float, z_max: float,
     depth = depth.contiguous()
     H, W = depth.shape
     if lib.gsdf_track_compact_tiles(H, W, sampling) != buf.status.numel():
-        raise RuntimeError("the kernel's tile size is not TILE_PIXELS")
+        raise RuntimeError(f"the kernel takes {H} x {W} frames at stride "
+                           f"{sampling} in "
+                           f"{lib.gsdf_track_compact_tiles(H, W, sampling)} "
+                           f"tiles, not tile_count's {buf.status.numel()}")
     fx, fy, cx, cy = _intrinsics(K)
     global launch_count
     with torch.cuda.device(dev):

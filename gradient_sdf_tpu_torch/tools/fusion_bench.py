@@ -51,6 +51,13 @@ instead (`kernel_split`): one-switch builds of a copy of its
 `csrc/fuse_integrate.cu` under its build directory, timed on golden frames
 0 and 5 beside the unswitched kernels, with their ptxas report and the
 scatter's reductions counted from the plain walk.
+
+    python3 gradient_sdf_tpu_torch/tools/fusion_bench.py --normals [DIR ...]
+
+takes the normals kernel of each tree DIR (this one if none) apart instead
+(`normals_split`): one-switch builds of a copy of its `csrc/fals_normals.cu`
+(NORMALS_SWITCHES), timed on golden frame 5 beside the unswitched kernels,
+then those in turns.
 """
 
 import argparse
@@ -658,10 +665,20 @@ def normals_vs_plain(cache, depths, fcfg):
 def normals_times(cache, depth):
     """Device ms of `fals_normals` on one frame beside its plain version
     (`compute_normals`), the plain version's float64 box sums alone
-    (`normals.box_filter` on the stacked products), and its bound."""
+    (`normals.box_filter` on the stacked products), its launch floor (an
+    empty kernel at its launch), its bound, and the host microseconds a
+    wrapper call takes."""
     import torch
     from gradient_sdf_tpu_torch.ops import normals
+    from gradient_sdf_tpu_torch.ops.kernels import _build
     from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
+
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        if lib.gsdf_fals_normals_empty(*depth.shape, cache.window, stream):
+            raise AssertionError("the empty launch failed")
 
     z_inv = torch.where(depth != 0.0, 1.0 / depth, torch.zeros_like(depth))
     img = torch.stack([cache.x0_n_sq_inv * z_inv, cache.y0_n_sq_inv * z_inv,
@@ -671,7 +688,133 @@ def normals_times(cache, depth):
             "plain_ms": median_ms(lambda: normals.compute_normals(cache, depth)),
             "box_filter_ms": median_ms(
                 lambda: normals.box_filter(img, cache.window)),
+            "launch_floor_ms": median_ms(empty),
+            "host_us": host_us(lambda: fn.fals_normals(cache, depth)),
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
+# The normals kernel taken apart (`normals_split`): one-switch builds of a
+# copy of a tree's `csrc/fals_normals.cu`, made like SPLIT_SWITCHES. Per
+# design (a string only its source holds): switch name -> edits. A build
+# that stops early keeps its last stage's results live through a store
+# that does not happen.
+_NSINK = "  if ({} == -1.5e30f) out[0] = 0.0f;\n  return;\n"
+NORMALS_SWITCHES = {
+    "32 x 16 tiles, float32 halo": ("constexpr int kTileX = 32;", {
+        "empty kernel at its grid": [(
+            "  extern __shared__ double smem[];",
+            "  return;\n  extern __shared__ double smem[];")],
+        "stage 1 only (halo products)": [(
+            "  // 2. each halo row's", _NSINK.format("a[tid]")
+            + "  // 2. each halo row's")],
+        "stages 1-2 (+ row sums)": [(
+            "  // 3. the column sums", _NSINK.format("(float)hsum[tid]")
+            + "  // 3. the column sums")],
+        "stage 2 converting once (float64 halo)": [
+            ("  float* a = reinterpret_cast<float*>(smem + 3 * rows * kTileX);",
+             "  double* a = smem + 3 * rows * kTileX;"),
+            ("    const float* src = a + c", "    const double* src = a + c"),
+            ("3 * rows * cols * sizeof(float);",
+             "3 * rows * cols * sizeof(double);")],
+    }),
+    "64 x 16 tiles, float64 halo, running sums": (
+        "constexpr int kTileX = 64;", {
+        "empty kernel at its grid": [(
+            "  extern __shared__ double smem[];",
+            "  return;\n  extern __shared__ double smem[];")],
+        "step 1's loads alone": [
+            ("          const float zi = d[j] != 0.0f ? 1.0f / d[j] : 0.0f;\n"
+             "          double* dst = P + hy * pitch + hx;\n"
+             "          dst[0] = static_cast<double>(u[j] * zi);\n"
+             "          dst[plane] = static_cast<double>(v[j] * zi);\n"
+             "          dst[2 * plane] = static_cast<double>(w[j] * zi);",
+             "          if (d[j] + u[j] + v[j] + w[j] == -1.5e30f) "
+             "out[0] = 0.0f;"),
+            ("  // the Q of this thread's step-4 pixels",
+             "  return;\n  // the Q of this thread's step-4 pixels")],
+        "step 1 (halo products), no Q loads": [(
+            "  // the Q of this thread's step-4 pixels",
+            "  __syncthreads();\n" + _NSINK.format("(float)P[tid]")
+            + "  // the Q of this thread's step-4 pixels")],
+        "steps 1-2 (+ column sums)": [(
+            "  // 3. along each output row",
+            _NSINK.format("(float)P[tid] + q[0][0].x")
+            + "  // 3. along each output row")],
+        "steps 1-3 (+ row sums)": [(
+            "  // 4. n = Q b", _NSINK.format("B[tid] + q[0][0].x")
+            + "  // 4. n = Q b")],
+        "steps 1-3, every Q value awaited": [(
+            "  // 4. n = Q b",
+            "  { float s_ = B[tid];\n    for (int k = 0; k < kPixels; ++k)\n"
+            "      for (int m = 0; m < 3; ++m) s_ += q[k][m].x + q[k][m].y;\n"
+            + _NSINK.format("s_") + "  }\n  // 4. n = Q b")],
+        "steps 1-4 (+ normals into shared memory)": [(
+            "  // 5. the rows out", _NSINK.format("N[tid]")
+            + "  // 5. the rows out")],
+    }),
+}
+NORMALS_FUNCS = ("gsdf_fals_normals_f32",)
+
+
+def normals_split(roots):
+    """Step 0 of the normals kernel, and its designs side by side: for each
+    tree root in `roots`, its `csrc/fals_normals.cu` built as it is and
+    under each switch of its design (NORMALS_SWITCHES), launched through
+    this package's wrapper on golden frame 5 (window 11) and timed with
+    `median_ms`; the unswitched builds first held to the plain version (b
+    and normals bit for bit) and timed in turns (roots in order, then in
+    reverse). Returns a dict."""
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.ops import normals
+    from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
+
+    dev = torch.device("cuda")
+    jobs, designs = switch_jobs(roots, "fals_normals.cu", NORMALS_SWITCHES,
+                                NORMALS_FUNCS)
+    built = build_all(jobs)
+    _, depths, _ = golden_protocol()
+    cache = normals.build_cache(640, 480, synth.KINECT_K, window=11,
+                                device=dev)
+    depth = torch.as_tensor(depths[5], device=dev)
+    n_ref, b_ref = fn.fals_normals_reference(cache, depth)
+    out = {"trees": []}
+    for k, root in enumerate(roots):
+        lib = built[(k, "as it is")][0]
+        n, b = with_lib(lib, lambda: fn.fals_normals(cache, depth,
+                                                     with_sums=True))
+        same = (torch.equal(b, b_ref)
+                and torch.equal(n.nan_to_num(7.0), n_ref.nan_to_num(7.0)))
+        ms = {name: median_ms(lambda: with_lib(lib_, lambda: fn.fals_normals(
+                  cache, depth)))
+              for (kk, name), (lib_, _) in built.items() if kk == k}
+        out["trees"].append({
+            "root": root, "design": designs[k], "bit_equal": same, "ms": ms,
+            "host_us": with_lib(lib, lambda: host_us(
+                lambda: fn.fals_normals(cache, depth))),
+            "ptxas": {name: ptxas_lines(log, "fals_normals")
+                      for (kk, name), (_, log) in built.items() if kk == k}})
+    order = list(range(len(roots)))
+    turns = order + order[::-1]
+    out["turns"] = [(roots[k], median_ms(lambda: with_lib(
+        built[(k, "as it is")][0], lambda: fn.fals_normals(cache, depth))))
+        for k in turns]
+    out["bound"] = normals_bound_ms(depth.numel(), cache.window)
+    return out
+
+
+def normals_split_report(res, smi):
+    for t in res["trees"]:
+        log(f"fals_normals of {t['root']} ({t['design']}), golden frame 5, "
+            f"window 11 [{smi}]: b and normals bit-equal to plain: "
+            f"{t['bit_equal']}; host {t['host_us']:.1f} us a wrapper call; "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in t["ms"].items()))
+        for name, lines in t["ptxas"].items():
+            for k, v in lines.items():
+                log(f"  ptxas ({name}) {k}: {v}")
+    log(f"fals_normals in turns [{smi}]: "
+        + "; ".join(f"{r} {ms:.4f} ms" for r, ms in res["turns"])
+        + f"; bound {res['bound'][0]:.5f} ms ({res['bound'][1]})")
 
 
 STRUCTURE = ("directory", "coarse_occ", "block_coords", "num_active",
@@ -1182,12 +1325,15 @@ def ptxas_lines(build_log, key):
     return out
 
 
-def build_switched(text, name, edits, ctas):
-    """`text` (a `fuse_integrate.cu`) with `edits` applied, built by itself
-    under the build directory; `ctas` stands for @CTAS@ in the edits (the
-    unswitched integrate kernel's CTAs an SM, so that a switched build
-    launches the same grid). Returns (ctypes library with the fusion entry
-    points declared as the package's, compiler output)."""
+def build_switched(text, name, edits, ctas=0, fname="fuse_integrate.cu",
+                   funcs=FUSE_FUNCS, tag=""):
+    """`text` (a `fname` source, `fuse_integrate.cu` by default) with
+    `edits` applied, built by itself under the build directory (in a
+    directory named after `fname`, `tag` and `name`); `ctas` stands for
+    @CTAS@ in the edits (the unswitched integrate kernel's CTAs an SM, so
+    that a switched build launches the same grid). Returns (ctypes library
+    with the entry points `funcs` declared as the package's, compiler
+    output)."""
     import ctypes
     import glob
     import re
@@ -1200,20 +1346,70 @@ def build_switched(text, name, edits, ctas):
             raise AssertionError(f"switch {name!r}: its anchor is not in the "
                                  f"source exactly once")
         text = text.replace(old, new.replace("@CTAS@", str(ctas)))
-    out_dir = os.path.join(_build.BUILD_ROOT, "split", re.sub(r"\W+", "-", name))
+    sub = "split" if fname == "fuse_integrate.cu" else f"split-{fname[:-3]}"
+    out_dir = os.path.join(_build.BUILD_ROOT, sub,
+                           re.sub(r"\W+", "-", f"{tag}{name}"))
     os.makedirs(out_dir, exist_ok=True)
     for header in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
         shutil.copy(header, out_dir)
-    src = os.path.join(out_dir, "fuse_integrate.cu")
+    src = os.path.join(out_dir, fname)
     with open(src, "w") as f:
         f.write(text)
     target = os.path.join(out_dir, "lib.so")
     log = _build._compile([src], out_dir, target)
     lib, real = ctypes.CDLL(target), _build.load()
-    for fn in FUSE_FUNCS:
+    for fn in funcs:
         getattr(lib, fn).argtypes = getattr(real, fn).argtypes
         getattr(lib, fn).restype = getattr(real, fn).restype
     return lib, log
+
+
+def switch_jobs(roots, fname, table, funcs):
+    """The builds that take `fname` of each tree root in `roots` apart:
+    ([((k, switch name), args, keywords) for `build_all`], {k: design}),
+    the source built as it is and under each switch of its design in
+    `table` (design -> (a string only its source holds, {switch name:
+    edits}))."""
+    jobs, designs = [], {}
+    for k, root in enumerate(roots):
+        with open(os.path.join(root, "gradient_sdf_tpu_torch", "csrc",
+                               fname)) as f:
+            text = f.read()
+        design = next(d for d, (mark, _) in table.items() if mark in text)
+        designs[k] = design
+        for name, edits in {"as it is": [], **table[design][1]}.items():
+            jobs.append(((k, name), (text, name, edits),
+                         {"fname": fname, "funcs": funcs, "tag": f"t{k}-"}))
+    return jobs, designs
+
+
+def build_all(jobs):
+    """`build_switched(*args, **kw)` for each (key, args, kw) of `jobs`,
+    the builds running together. Returns {key: (library, compiler
+    output)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {k: ex.submit(build_switched, *a, **kw) for k, a, kw in jobs}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def host_us(fn, calls=200):
+    """Host microseconds one `fn()` takes to return (the wrapper's checks,
+    ctypes and the launch's enqueue): the mean over `calls` back-to-back
+    calls, queued behind a device-side spin so that no call waits for the
+    device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def with_lib(lib, fn):
@@ -1267,8 +1463,6 @@ def kernel_split():
     while it opens them (`reset_ms`, the map's structure, the scratch and
     the claim pass put back before each launch). Then `reduction_counts`.
     Returns a dict."""
-    from concurrent.futures import ThreadPoolExecutor
-
     import torch
     from gradient_sdf_tpu_torch.data import synth
     from gradient_sdf_tpu_torch.models.grad_sdf import GradSdfMap
@@ -1283,9 +1477,8 @@ def kernel_split():
     design = next(d for d, (mark, _) in SPLIT_SWITCHES.items() if mark in text)
     switches = SPLIT_SWITCHES[design][1]
     shape = fi.integrate_shape(5)
-    with ThreadPoolExecutor(len(switches)) as ex:
-        built = dict(zip(switches, ex.map(
-            lambda kv: build_switched(text, *kv, shape[0]), switches.items())))
+    built = build_all([(name, (text, name, edits, shape[0]), {})
+                       for name, edits in switches.items()])
     out = {"design": design, "ptxas": ptxas_lines(_build.build_log, "fuse_"),
            "ptxas_switched": {n: ptxas_lines(log, "fuse_integrate")
                               for n, (_, log) in built.items()
@@ -1407,6 +1600,10 @@ def main():
     ap.add_argument("--kernels", metavar="DIR", nargs="?", const=OWN_ROOT,
                     help="only the fusion kernels of the tree in DIR (this "
                          "one by default) taken apart (`kernel_split`)")
+    ap.add_argument("--normals", metavar="DIR", nargs="*",
+                    help="only the normals kernel of each tree DIR (this one "
+                         "if none) taken apart and timed in turns "
+                         "(`normals_split`)")
     args = ap.parse_args()
     root = (args.tree[0] if args.tree
             else (args.split_tree or args.kernels or OWN_ROOT))
@@ -1431,6 +1628,11 @@ def main():
     log(smi)
     if args.kernels:
         split_report(kernel_split(), smi, f"tree {args.kernels}")
+        return 0
+    if args.normals is not None:
+        normals_split_report(normals_split(
+            [os.path.abspath(r) for r in args.normals] or [OWN_ROOT]), smi)
+        log(smi)
         return 0
     if args.split:
         split_turns(args.parent, smi)

@@ -69,6 +69,13 @@ constants changed, under `smoke_out/`), and once at its own shape with the
 app's block shape sent to the instance that divides at run time, and times
 each loop kernel per frame, its one-pass launch, its floor and an iteration
 over no points on golden frame 5 and on the full frame.
+
+    python3 gradient_sdf_tpu_torch/tools/track_bench.py --compact [DIR ...]
+
+takes the compaction kernel of each tree DIR (this one if none) apart
+instead (`compact_split`): one-switch builds of a copy of its
+`csrc/track_compact.cu` (COMPACT_SWITCHES), timed on golden frame 5 beside
+the unswitched kernels, then those in turns.
 """
 
 import dataclasses
@@ -696,9 +703,19 @@ def compact_times(depth, K, fcfg, tcfg, buf):
     version (`track_compact_reference`: backprojection, `pts_cam[mask]`
     and the copy into a buffer, its host sync timed with it), the library
     call `pts_cam[mask]` alone (`nonzero` and the gather, with its sync),
-    and its bound."""
+    its launch floor (an empty kernel at its launch), its bound, and the
+    host microseconds a wrapper call takes."""
+    import torch
+    from gradient_sdf_tpu_torch.ops.kernels import _build
     from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
-    from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
+    from gradient_sdf_tpu_torch.tools.fusion_bench import host_us, median_ms
+
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        if lib.gsdf_track_compact_empty(*depth.shape, tcfg.sampling, stream):
+            raise AssertionError("the empty launch failed")
 
     args = (depth, K, fcfg.z_min, fcfg.z_max)
     ref = tc.new_buffer(depth.shape, tcfg.sampling, depth.device)
@@ -711,8 +728,141 @@ def compact_times(depth, K, fcfg, tcfg, buf):
             "plain_ms": median_ms(lambda: tc.track_compact_reference(
                 *args, ref)),
             "library_ms": median_ms(lambda: pts_cam[mask]),
+            "launch_floor_ms": event_ms(empty),
+            "host_us": host_us(lambda: tc.track_compact(*args, tcfg.sampling,
+                                                        buf)),
             "bound_ms": bound[0], "bound_by": bound[1], "points": kept,
             "pixels": z.numel()}
+
+
+# The compaction kernel taken apart (`compact_split`): one-switch builds of
+# a copy of a tree's `csrc/track_compact.cu`, made as fusion_bench's
+# SPLIT_SWITCHES. Per design (a string only its source holds): switch name
+# -> edits. Results of a switched build are timings only.
+COMPACT_SWITCHES = {
+    "2048-pixel tiles from a counter": (
+        "constexpr int kTile = kItems * kThreads;", {
+            "empty kernel at its grid": [(
+                "  __shared__ int tile_sh;",
+                "  return;\n  __shared__ int tile_sh;")],
+            "tile from blockIdx, no counter": [(
+                "if (tid == 0) tile_sh = atomicAdd(next_tile, 1);",
+                "if (tid == 0) tile_sh = blockIdx.x;")],
+            "without the look-back (tile 0's prefix only)": [(
+                "      before_tile = look_back(status, t, epoch);",
+                "      before_tile = 0;")],
+            "without the point writes": [(
+                "    float* p = pts + 3 * (row0 + rows[k * kWarps + warp] + "
+                "before[k]);\n    p[0] = x0 * z[k];\n    p[1] = y0 * z[k];\n"
+                "    p[2] = z[k];",
+                "    if (x0 * z[k] + y0 * z[k] == -1.5e30f) pts[0] = 0.0f;")],
+        }),
+    "tiles of whole rows, one-read look-back": (
+        "constexpr int kTileRows = 4;", {
+            "empty kernel at its grid": [(
+                "  extern __shared__ float stage[];",
+                "  return;\n  extern __shared__ float stage[];")],
+            "tile from blockIdx, no counter": [(
+                "if (tid == 0) tile_sh = atomicAdd(next_tile, 1);",
+                "if (tid == 0) tile_sh = blockIdx.x;")],
+            "without the look-back (tile 0's prefix only)": [(
+                "    const long long before_tile = "
+                "look_back(status, t, epoch);",
+                "    const long long before_tile = 0;")],
+            "without the points (stage and stores)": [
+                ("      if (!((keep[k] >> j) & 1u)) continue;",
+                 "      if (keep[k] < 16u) continue;"),
+                ("  // the span in 16-byte stores",
+                 "  if (total == -7) pts[0] = 0.0f;\n  return;\n"
+                 "  // the span in 16-byte stores")],
+            "without the 16-byte stores (stage only)": [(
+                "  // the span in 16-byte stores",
+                "  if (stage[tid] == -1.5e30f) pts[0] = 0.0f;\n  return;\n"
+                "  // the span in 16-byte stores")],
+        }),
+}
+COMPACT_FUNCS = ("gsdf_track_compact_f32", "gsdf_track_compact_tiles")
+
+
+def compact_split(roots):
+    """Step 0 of the compaction kernel, and its designs side by side: for
+    each tree root in `roots`, its `csrc/track_compact.cu` built as it is
+    and under each switch of its design (COMPACT_SWITCHES), launched
+    through this package's wrapper (status words as many as that build's
+    tiles) on golden frame 5 at stride 1 and timed with `event_ms`; the
+    unswitched builds first held to `compact_points` (count and points bit
+    for bit) and timed in turns (roots in order, then in reverse). Returns
+    a dict."""
+    import torch
+    from gradient_sdf_tpu_torch.config import PipelineConfig
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.models import tracker
+    from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
+    from gradient_sdf_tpu_torch.tools import fusion_bench as fb
+
+    dev = torch.device("cuda")
+    jobs, designs = fb.switch_jobs(roots, "track_compact.cu",
+                                   COMPACT_SWITCHES, COMPACT_FUNCS)
+    built = fb.build_all(jobs)
+    _, depths, _ = fb.golden_protocol()
+    cfg = PipelineConfig()
+    fcfg, tcfg = cfg.fusion, cfg.tracker
+    K = synth.KINECT_K
+    depth = torch.as_tensor(depths[5], device=dev)
+    H, W = depth.shape
+    want = tracker.compact_points(depth, K, fcfg, tcfg)
+
+    def buffer(lib):
+        buf = tc.new_buffer(depth.shape, tcfg.sampling, dev)
+        buf.status = torch.zeros(lib.gsdf_track_compact_tiles(
+            H, W, tcfg.sampling), dtype=torch.int64, device=dev)
+        return buf
+
+    def run(lib, buf):
+        return fb.with_lib(lib, lambda: tc.track_compact(
+            depth, K, fcfg.z_min, fcfg.z_max, tcfg.sampling, buf))
+
+    out = {"trees": [], "points": want.shape[0]}
+    for k, root in enumerate(roots):
+        lib = built[(k, "as it is")][0]
+        buf = buffer(lib)
+        pts, count = run(lib, buf)
+        n = int(count)
+        same = n == want.shape[0] and torch.equal(pts[:n], want)
+        ms = {}
+        for (kk, name), (lib_, _) in built.items():
+            if kk == k:
+                b_ = buffer(lib_)
+                ms[name] = event_ms(lambda: run(lib_, b_))
+        out["trees"].append({
+            "root": root, "design": designs[k], "bit_equal": same, "ms": ms,
+            "tiles": buf.status.numel(),
+            "host_us": fb.host_us(lambda: run(lib, buf)),
+            "ptxas": {name: fb.ptxas_lines(log, "track_compact")
+                      for (kk, name), (_, log) in built.items() if kk == k}})
+    order = list(range(len(roots)))
+    out["turns"] = []
+    for k in order + order[::-1]:
+        lib = built[(k, "as it is")][0]
+        buf = buffer(lib)
+        out["turns"].append((roots[k], event_ms(lambda: run(lib, buf))))
+    out["bound"] = compact_bound_ms(depth.numel(), want.shape[0])
+    return out
+
+
+def compact_split_report(res, smi):
+    for t in res["trees"]:
+        log(f"track_compact of {t['root']} ({t['design']}, {t['tiles']} "
+            f"tiles), golden frame 5 at stride 1, {res['points']} points "
+            f"[{smi}]: count and points bit-equal to compact_points: "
+            f"{t['bit_equal']}; host {t['host_us']:.1f} us a wrapper call; "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in t["ms"].items()))
+        for name, lines in t["ptxas"].items():
+            for k, v in lines.items():
+                log(f"  ptxas ({name}) {k}: {v}")
+    log(f"track_compact in turns [{smi}]: "
+        + "; ".join(f"{r} {ms:.4f} ms" for r, ms in res["turns"])
+        + f"; bound {res['bound'][0]:.5f} ms ({res['bound'][1]})")
 
 
 def iteration_edge(st, conv_sq, k_kernel, k_plain) -> bool:
@@ -909,7 +1059,10 @@ def golden_phase(depths, K, smi, at_last=None):
             ctimes = compact_times(depth, K, fcfg, tcfg, buf)
             log(f"phase4b golden frame {i} compaction ({ctimes['points']} of "
                 f"{ctimes['pixels']} pixels kept): track_compact "
-                f"{ctimes['ms']:.4f} ms (bound {ctimes['bound_ms']:.5f}, "
+                f"{ctimes['ms']:.4f} ms (launch floor "
+                f"{ctimes['launch_floor_ms']:.4f}, host "
+                f"{ctimes['host_us']:.1f} us a call; bound "
+                f"{ctimes['bound_ms']:.5f}, "
                 f"bytes; plain track_compact_reference with its sync "
                 f"{ctimes['plain_ms']:.4f}; pts_cam[mask] alone with its "
                 f"sync {ctimes['library_ms']:.4f}) [{smi}]")
@@ -953,6 +1106,8 @@ def golden_phase(depths, K, smi, at_last=None):
     return {
         "track_ms": mean, "iterations": iters_total, "frame5": times,
         "compact": {"max_abs_err": 0.0, "ms": ctimes["ms"],
+                    "launch_floor_ms": ctimes["launch_floor_ms"],
+                    "host_us": ctimes["host_us"],
                     "plain_ms": ctimes["plain_ms"],
                     "bound_ms": ctimes["bound_ms"],
                     "bound_by": ctimes["bound_by"],
@@ -1459,6 +1614,10 @@ def main():
     ap.add_argument("--parent", help="checkout of an earlier commit to compare")
     ap.add_argument("--shapes", action="store_true",
                     help="time the loop kernel at every cluster shape")
+    ap.add_argument("--compact", metavar="DIR", nargs="*",
+                    help="only the compaction kernel of each tree DIR (this "
+                         "one if none) taken apart and timed in turns "
+                         "(`compact_split`)")
     ap.add_argument("--tree", help="track through the package in DIR alone "
                     "and print one JSON line (what --parent runs per tree)")
     args = ap.parse_args()
@@ -1481,6 +1640,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
+    if args.compact is not None:
+        compact_split_report(compact_split(
+            [os.path.abspath(r) for r in args.compact] or [OWN_ROOT]), smi)
+        log(smi)
+        return 0
     dev = torch.device("cuda")
     _, depths, _ = golden_protocol()
     cases = {}

@@ -127,13 +127,65 @@ def test_rejects_what_the_kernel_does_not_take(bad):
         fn.fals_normals(tc, depth)
 
 
+def _kernel_order_box_sums(img, window, tile_y=16, strip=16):
+    """The window sums of the float32 images `img` [C, H, W] in the order
+    the kernel (csrc/fals_normals.cu) takes them, in float64: for each tile
+    of `tile_y` output rows, down each column of the reflect-101 padded
+    image a running sum, ((s + entering) - leaving) after a first sum of
+    `window` terms; then along each output row, for each strip of `strip`
+    outputs, the same over those column sums; rounded to float32."""
+    r = window // 2
+    _, H, W = img.shape
+    a = np.pad(img.astype(np.float64), ((0, 0), (r, r), (r, r)),
+               mode="reflect")
+    col = np.empty((img.shape[0], H, W + 2 * r))
+    for y0 in range(0, H, tile_y):
+        s = np.zeros(col.shape[::2])
+        for k in range(window):
+            s = s + a[:, y0 + k]
+        col[:, y0] = s
+        for y in range(y0 + 1, min(y0 + tile_y, H)):
+            s = s + a[:, y + 2 * r]
+            s = s - a[:, y - 1]
+            col[:, y] = s
+    out = np.empty(img.shape, np.float32)
+    for x0 in range(0, W, strip):
+        s = np.zeros(col.shape[:2])
+        for k in range(window):
+            s = s + col[:, :, x0 + k]
+        out[:, :, x0] = s
+        for x in range(x0 + 1, min(x0 + strip, W)):
+            s = s + col[:, :, x + 2 * r]
+            s = s - col[:, :, x - 1]
+            out[:, :, x] = s
+    return out
+
+
+@pytest.mark.parametrize("window", [5, 11, 21])
+def test_kernel_running_sums_are_box_filter_bit_for_bit(window):
+    """The kernel's add-and-subtract order, emulated in numpy on a frame
+    with holes, gives `box_filter`'s float32 sums bit for bit: every partial
+    sum of the frame's float32 products is exact in float64."""
+    depth = torch.from_numpy(_depth(9))
+    _, tc = _caches(window)
+    z_inv = torch.where(depth != 0.0, 1.0 / depth, torch.zeros_like(depth))
+    img = torch.stack([tc.x0_n_sq_inv * z_inv, tc.y0_n_sq_inv * z_inv,
+                       tc.n_sq_inv * z_inv])
+    want = tnorm.box_filter(img, window).numpy()
+    got = _kernel_order_box_sums(img.numpy(), window)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def _gates(depth, normals, cache):
     return tfu._pixel_rays(depth, normals, cache, FusionConfig()).valid
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("window,size", [(5, (W, H)), (11, (W, H)),
-                                         (11, (640, 480)), (3, (37, 13))])
+                                         (11, (640, 480)), (3, (37, 13)),
+                                         (21, (W, H)), (21, (640, 480)),
+                                         (11, (130, 35)), (5, (67, 17)),
+                                         (11, (641, 481))])
 def test_cuda_kernel_matches_plain_bit_for_bit(window, size):
     """On a card: the kernel's b, normals (NaN where the plain version's
     are) and fusion's gated pixels equal the plain version's on the card,
@@ -157,6 +209,25 @@ def test_cuda_kernel_matches_plain_bit_for_bit(window, size):
 
 
 @pytest.mark.gpu
+def test_cuda_kernel_on_every_card_at_window_21():
+    """Window 21 needs more than the 48 KB of shared memory a launch gets
+    by default: the kernel raises its limit on each card it runs on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    depth = _depth(13, 160, 120)
+    for d in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        tc = tnorm.build_cache(160, 120, K, window=21, device=dev)
+        n, b = fn.fals_normals(tc, torch.from_numpy(depth).to(dev),
+                               with_sums=True)
+        n_ref, b_ref = fn.fals_normals_reference(tc, torch.from_numpy(
+            depth).to(dev))
+        torch.cuda.synchronize(dev)
+        assert torch.equal(b, b_ref)
+        assert torch.equal(n.nan_to_num(7.0), n_ref.nan_to_num(7.0))
+
+
+@pytest.mark.gpu
 def test_cuda_fuse_frame_launches_the_kernel_once():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the CUDA map's path)")
@@ -173,3 +244,22 @@ def test_cuda_fuse_frame_launches_the_kernel_once():
                    gcfg, fcfg)
     torch.cuda.synchronize()
     assert fn.launch_count == 1
+
+
+def test_bench_switches_match_the_kernel_source():
+    """`tools/fusion_bench.py` takes the kernel apart by one-switch builds of a
+    copy of its source: the source is one of the designs its table knows,
+    and every switch's anchor is in it exactly once."""
+    import os
+
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.tools import fusion_bench
+
+    with open(os.path.join(_build.CSRC, "fals_normals.cu")) as f:
+        text = f.read()
+    table = fusion_bench.NORMALS_SWITCHES
+    designs = [d for d, (mark, _) in table.items() if mark in text]
+    assert len(designs) == 1
+    for name, edits in table[designs[0]][1].items():
+        for old, _ in edits:
+            assert text.count(old) == 1, name

@@ -104,6 +104,18 @@ def test_compaction_equals_compact_points_and_reuses_its_buffer():
                          FCFG.z_max, 2, buf)
 
 
+@pytest.mark.parametrize("shape,sampling,tiles", [
+    ((480, 640), 1, 120), ((480, 640), 2, 60), ((960, 1280), 1, 480),
+    ((961, 1281), 2, 121), ((45, 61), 3, 4), ((45, 61), 1, 12)])
+def test_buffer_has_a_status_word_per_tile(shape, sampling, tiles):
+    """The kernel's tiles are whole strided rows, min(4, 3072 // cols) of
+    them: a VGA frame at stride 1 is 120 tiles (one read of 128 status
+    words in the look-back covers every predecessor), a 1280 x 960 frame
+    480 (the look-back walks back in rounds)."""
+    assert tc.tile_count(shape, sampling) == tiles
+    assert tc.new_buffer(shape, sampling, "cpu").status.shape == (tiles,)
+
+
 def test_map_keeps_one_buffer_per_camera():
     m = GradSdfMap(PipelineConfig(), device="cpu")
     a = m.track_buffer((120, 160), 1)
@@ -191,7 +203,9 @@ def test_track_frame_then_fuse_frame_match_jax(setup, port_normals_in_jax):
 @pytest.mark.gpu
 @pytest.mark.parametrize("sampling,size", [(1, (61, 45)), (2, (61, 45)),
                                            (3, (61, 45)), (1, (640, 480)),
-                                           (2, (640, 480))])
+                                           (2, (640, 480)), (1, (1280, 960)),
+                                           (3, (640, 480)), (1, (643, 481)),
+                                           (2, (1281, 961)), (1, (3, 7))])
 def test_cuda_kernel_matches_plain_bit_for_bit(sampling, size):
     """On a card: the kernel's count and points = the plain version's on
     the card, bit for bit, in order; one launch a call, and the count
@@ -252,3 +266,22 @@ def test_cuda_track_frame_makes_one_host_sync(setup):
     assert torch.equal(status, st) and torch.equal(R, Rc) and torch.equal(t, tc_)
     res = ttr.track_frame(cg, depth, K, R0, t0, GCFG, FCFG, tcfg, compact=buf)
     assert torch.equal(res.R, Rc) and torch.equal(res.t, tc_)
+
+
+def test_bench_switches_match_the_kernel_source():
+    """`tools/track_bench.py` takes the kernel apart by one-switch builds of a
+    copy of its source: the source is one of the designs its table knows,
+    and every switch's anchor is in it exactly once."""
+    import os
+
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.tools import track_bench
+
+    with open(os.path.join(_build.CSRC, "track_compact.cu")) as f:
+        text = f.read()
+    table = track_bench.COMPACT_SWITCHES
+    designs = [d for d, (mark, _) in table.items() if mark in text]
+    assert len(designs) == 1
+    for name, edits in table[designs[0]][1].items():
+        for old, _ in edits:
+            assert text.count(old) == 1, name
