@@ -40,7 +40,11 @@ group, through the apps' entry points: Scan3D --devices 4 tracking and from
 ground-truth poses against phases 4 and 5, a cut and resumed mesh run, a
 sharded render of the render scene bit for bit against the unsharded one,
 one sharded BA alternation at phase 7's scale point against one card, and
-PhotoBA --sharded-ba on phase 6b's textured spheres. Phase 16 replays
+PhotoBA --sharded-ba on phase 6b's textured spheres; 15e holds the mesh's
+merge kernel (`merge_touched`, one launch a fused frame and rank, no host
+sync) to its plain version and to the step it replaced on every rank's
+golden-frame-5 inputs, bit for bit, and times it beside an empty kernel at
+its grid, its bound and the replaced step. Phase 16 replays
 phase 14's frames from a TUM folder whose PNGs cycle through filters 0-4:
 the folder read synchronously and through the decode-ahead reader (equal
 byte for byte), then Scan3D --data-type tum in turns decoding ahead and
@@ -55,7 +59,8 @@ Output: one line of numbers per phase; then the card's name and power
 limit (`nvidia-smi`), a JSON line `{"kernels": [...]}` with each kernel's
 launch count on the main paths (each counted from zero, and named in
 `launches_counted_in`; one card's fusion launches the two `fuse_integrate`
-passes, the mesh's the scatter kernel and `merge_clear`), its largest error
+passes, the mesh's the scatter kernel and `merge_clear`'s touched-block
+mode, `merge_touched`), its largest error
 against the plain version, its
 time beside the plain version's, the bound and (for the scatter and its
 F = 1 launch, `scatter_add_rows`) the bare `index_add_` as the library
@@ -180,6 +185,7 @@ def phase_build():
 
     lib = _build.load()
     for name in ("gsdf_scatter_add_f32", "gsdf_merge_clear_f32",
+                 "gsdf_merge_touched_f32", "gsdf_merge_launch_shape",
                  "gsdf_raycast_march_f32", "gsdf_gn_track_loop_f32",
                  "gsdf_gn_step_f32", "gsdf_gn_cluster_shape",
                  "gsdf_fuse_claim_f32", "gsdf_fuse_integrate_f32",
@@ -436,24 +442,30 @@ def phase_merge_and_in_situ():
     scatter_bound = scatter_bound_ms(n, int(inmap.sum()), distinct)
     merge_bound = merge_bound_ms(rows)
     # the launch floor: a kernel that does nothing, timed the same way, at
-    # merge_clear's launch shape (its grid-stride loop's blocks x 256) and
-    # at one warp
+    # merge_clear's launch shape (CTAs that walk the blocks below
+    # num_active, one thread a voxel of a block) and at one warp
+    import ctypes
+
     from gradient_sdf_tpu_torch.ops.kernels import _build
 
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    merge_blocks = min(-(-nvox // 256), 132 * 8)
+    shape = (ctypes.c_int * 2)()
+    lib.gsdf_merge_launch_shape(grid.num_blocks, grid.voxels_per_block, 1,
+                                ctypes.addressof(shape))
+    merge_blocks, merge_threads = shape[0], shape[1]
 
     def empty(blocks, threads):
         if lib.gsdf_empty_launch(blocks, threads, stream) != 0:
             raise AssertionError("the empty kernel did not launch")
 
-    empty_ms = median_ms(lambda: empty(merge_blocks, 256))
+    empty_ms = median_ms(lambda: empty(merge_blocks, merge_threads))
     empty_warp_ms = median_ms(lambda: empty(1, 32))
     above = merge_ms - empty_ms
     share = merge_bound / above if above > 0 else float("inf")
     log(f"phase2b launch floor: an empty kernel {empty_ms:.4f} ms at "
-        f"merge_clear's {merge_blocks} x 256, {empty_warp_ms:.4f} ms at 1 x 32; "
+        f"merge_clear's {merge_blocks} x {merge_threads}, {empty_warp_ms:.4f} ms "
+        f"at 1 x 32; "
         f"merge_clear {merge_ms:.4f} ms is {above:.4f} ms above the floor, "
         f"where its byte bound {merge_bound:.5f} ms is {share * 100:.1f}% of it")
     log(f"phase2b merge_clear + in situ, frame 5: N={n} samples, {distinct} distinct voxels, "
@@ -468,9 +480,10 @@ def phase_merge_and_in_situ():
         "scatter": {"max_abs_err": scatter_err, "ms": scatter_ms,
                     "plain_ms": scatter_plain, "bound_ms": scatter_bound,
                     "library_ms": scatter_lib},
-        "merge": {"max_abs_err": merge_err, "ms": merge_ms,
-                  "plain_ms": merge_plain, "bound_ms": merge_bound,
-                  "library_ms": None, "empty_launch_ms": empty_ms},
+        "merge": {"max_abs_err": merge_err, "full_slot_ms": merge_ms,
+                  "full_slot_plain_ms": merge_plain,
+                  "full_slot_bound_ms": merge_bound,
+                  "full_slot_launch_floor_ms": empty_ms},
         "rows": {"max_abs_err": rows_err, "ms": rows_ms,
                  "plain_ms": rows_plain, "bound_ms": rows_bound,
                  "library_ms": rows_lib},
@@ -775,15 +788,16 @@ def launch_counts():
 # one card fuses a frame in one launch of the normals kernel and the two
 # launches of fuse_integrate.cu (claim pass, integrate-and-merge pass) and
 # launches neither the scatter kernel nor merge_clear; each rank of a mesh
-# takes the plain normals, scatters and merges its shard with those two and
-# launches none of the three
+# takes the plain normals, scatters and merges its shard with those two (the
+# merge: one `merge_touched` launch) and launches none of the three
 FUSION_KERNELS = ("fals_normals", "fuse_claim", "fuse_integrate")
 MESH_FUSION_KERNELS = ("scatter_add", "merge_clear")
 # one card tracks a frame in one launch of the compaction kernel and one of
-# the loop kernel; a mesh rank compacts in plain PyTorch and runs the
+# the loop kernel; a mesh rank compacts with the same kernel and runs the
 # one-pass launch and the step kernel once per GN iteration
 TRACKED = FUSION_KERNELS + ("track_compact", "gn_track_loop")
-MESH_TRACKED = MESH_FUSION_KERNELS + ("gn_residual_reduce", "gn_step")
+MESH_TRACKED = MESH_FUSION_KERNELS + ("track_compact", "gn_residual_reduce",
+                                      "gn_step")
 
 
 def check_fusion_launches(launches, fused, ranks=1):
@@ -803,9 +817,9 @@ def check_fusion_launches(launches, fused, ranks=1):
 def check_track_launches(m, launches, ranks=1):
     """On one card a tracked run launches the compaction kernel and the GN
     loop kernel once per tracked frame and neither the one-pass launch nor
-    the step kernel; on each rank of a mesh it launches the one-pass launch
-    and the step kernel once per GN iteration and neither the compaction
-    kernel nor the loop kernel."""
+    the step kernel; on each rank of a mesh it launches the compaction
+    kernel once per tracked frame, the one-pass launch and the step kernel
+    once per GN iteration, and never the loop kernel."""
     frames = sum(e["gn_iters"] is not None for e in m["frame_log"])
     iters = ranks * sum(e["gn_iters"] or 0 for e in m["frame_log"])
     if ranks == 1:
@@ -816,11 +830,12 @@ def check_track_launches(m, launches, ranks=1):
         want = (f"one compaction and one loop launch per frame for {frames} "
                 f"tracked frames")
     else:
-        ok = (iters > 0
-              and launches["gn_track_loop"] == launches["track_compact"] == 0
+        ok = (iters > 0 and launches["gn_track_loop"] == 0
+              and launches["track_compact"] == ranks * frames
               and launches["gn_residual_reduce"] == launches["gn_step"] == iters)
-        want = (f"one one-pass and one step launch per GN iteration and rank "
-                f"for {iters}")
+        want = (f"one compaction launch per tracked frame and rank for "
+                f"{ranks} x {frames}, one one-pass and one step launch per GN "
+                f"iteration and rank for {iters}, no loop launch")
     if not ok:
         raise AssertionError(f"kernel launches {launches}; want {want}")
 
@@ -1978,21 +1993,23 @@ def mesh_ba_case(device):
 def mesh_fusion_case(spec):
     """15e on this rank: golden frames 0-4 fused from ground-truth poses
     through `sharded_fuse_frame` into a block-sharded grid, then frame 5
-    through the same steps one by one, with the scatter kernel held to its
-    plain version on this rank's compact sample slice and `merge_clear` on
-    its shard (bit for bit). Returns rank 0's numbers, each the worst over
-    the ranks."""
+    through the same steps up to the merge
+    (`fusion_bench.mesh_merge_inputs`), with the scatter kernel held to its
+    plain version on this rank's compact sample slice; the rank's merge
+    inputs are saved to spec["merge"] for the parent, which holds the merge
+    kernel to its plain version and times it. Returns rank 0's numbers,
+    each the worst over the ranks."""
     import dataclasses
 
     import torch
     from gradient_sdf_tpu_torch import config as cfg_mod
     from gradient_sdf_tpu_torch.data import loaders
-    from gradient_sdf_tpu_torch.ops import fusion, normals
+    from gradient_sdf_tpu_torch.ops import normals
     from gradient_sdf_tpu_torch.ops import voxel_grid as vg
-    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
     from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
     from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
     from gradient_sdf_tpu_torch.parallel import sharding
+    from gradient_sdf_tpu_torch.tools import fusion_bench as fb
 
     mesh = mesh_mod.make_mesh(MESH_RANKS, MESH_BLOCKS, spec["device"])
     dev = mesh.device
@@ -2005,45 +2022,31 @@ def mesh_fusion_case(spec):
     frames = list(loader.frames(0, None))
     cache = normals.build_cache(640, 480, K, fcfg.normal_window, dev)
     grid = sharding.shard_grid(mesh, vg.create(gcfg, dev))
-    acc = fusion.new_accumulator(grid)
 
     def inputs(f):
         return [torch.as_tensor(a, dtype=torch.float32, device=dev)
                 for a in (f.depth, gt[f.index][1], gt[f.index][2])]
 
     for f in frames[:-1]:
-        grid = sharding.sharded_fuse_frame(mesh, grid, *inputs(f)[:1], cache,
-                                           *inputs(f)[1:], gcfg, fcfg, acc=acc)
+        depth, R, t = inputs(f)
+        grid = sharding.sharded_fuse_frame(mesh, grid, depth, cache, R, t,
+                                           gcfg, fcfg)
     depth, R, t = inputs(frames[-1])
-    s = fusion.frame_samples(depth, cache, R, t, gcfg, fcfg)
-    grid, lin, ok = fusion._alloc_slots(grid, s, gcfg)
-    nb, vpb = grid.num_blocks, gcfg.voxels_per_block
-    lo, m = sharding.block_range(mesh, nb)
-    lin, slot, local, fields = sharding.rank_samples(mesh, s, lin, ok, vpb, nb)
-    tidx = sharding.touched_blocks(mesh, slot, nb)
-    cap = tidx.shape[0]
-    lin_c = sharding.compact_index(slot, local, tidx, nb, vpb, cap)
-    acc_k = sa.new_accumulator(cap * vpb, dev)
-    sa.scatter_add_fields(lin_c, fields, cap * vpb, acc=acc_k[:, :5])
-    acc_p = sa.scatter_add_multi_reference(lin_c, torch.stack(fields, -1),
-                                           cap * vpb)
-    scatter_err = (acc_k[:, :5] - acc_p).abs().max()
-    scatter_ok = torch.allclose(acc_k[:, :5], acc_p, rtol=RTOL, atol=ATOL)
-    red = mesh_mod.psum(acc_k[:, :5].contiguous(), mesh, count=False)
-    sharding.keep_owned_rows(acc, red, tidx, lo, m, vpb)
-    na = sharding.shard_active(grid, lo, m)
-    state = [grid.weight, grid.dist, grid.grad_x, grid.grad_y, grid.grad_z]
-    kern = [a.clone() for a in [acc] + state]
-    plain = [a.clone() for a in [acc] + state]
-    mc.merge_clear(*kern, na)
-    mc.merge_clear_reference(*plain, na)
-    merge_equal = all(_same_bits(a, b) for a, b in zip(kern, plain))
-    worst = torch.tensor([float(scatter_err), float(not scatter_ok),
-                          float(not merge_equal)], device=dev)
+    grid, inp = fb.mesh_merge_inputs(mesh, grid, depth, cache, R, t, gcfg,
+                                     fcfg)
+    acc_p = sa.scatter_add_multi_reference(
+        inp["lin_c"], torch.stack(inp["fields"], -1), inp["rows"])
+    got = inp["acc"][:, :5]
+    scatter_err = (got - acc_p).abs().max()
+    scatter_ok = torch.allclose(got, acc_p, rtol=RTOL, atol=ATOL)
+    fb.save_merge_inputs(os.path.join(spec["merge"], f"rank{mesh.rank}.pt"),
+                         grid, inp)
+    worst = torch.tensor([float(scatter_err), float(not scatter_ok)],
+                         device=dev)
     mesh_mod.psum(worst, mesh, op=torch.distributed.ReduceOp.MAX, count=False)
-    return {"blocks": cap, "samples": int(lin_c.shape[0]),
-            "na_local": int(na), "scatter_err": float(worst[0]),
-            "scatter_ok": not worst[1], "merge_equal": not worst[2]}
+    return {"blocks": int(inp["tidx"].shape[0]),
+            "samples": int(inp["lin_c"].shape[0]),
+            "scatter_err": float(worst[0]), "scatter_ok": not worst[1]}
 
 
 def phase15_rank(spec):
@@ -2094,10 +2097,12 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
     render scene, one sharded BA alternation at phase 7's scale point and
     photoba --sharded-ba on phase 6b's textured data, in one group of 4
     ranks on the card(s) this machine has; and the fusion kernels held to
-    their plain versions on a rank's inputs of the mesh path (15e).
-    `scene`: where the render scene's grid was saved (`save_grid_prefix`),
-    its configs and pose 4. Returns the counted paths, and the largest
-    error of each kernel against its plain version in this phase."""
+    their plain versions on a rank's inputs of the mesh path (15e: the
+    scatter in the ranks, the merge on each rank's saved inputs here,
+    `fusion_bench.mesh_merge_report`). `scene`: where the render scene's
+    grid was saved (`save_grid_prefix`), its configs and pose 4. Returns
+    the counted paths, the largest error of each kernel against its plain
+    version in this phase, and rank 0's merge times."""
     import numpy as np
     import torch
     from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
@@ -2108,11 +2113,14 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
             "gt": os.path.join(WORK, "mesh_gt"),
             "cut": os.path.join(WORK, "mesh_resume"),
             "photoba": os.path.join(WORK, "mesh_photoba"),
+            "merge": os.path.join(WORK, "mesh_merge"),
             "textured": os.path.join(WORK, "textured"),
             "scene": scene["path"], "scene_gcfg": scene["gcfg"],
             "scene_fcfg": scene["fcfg"], "scene_pose": scene["pose"],
             "device": device}
     torch.cuda.empty_cache()
+    shutil.rmtree(spec["merge"], ignore_errors=True)
+    os.makedirs(spec["merge"])
     t0 = time.perf_counter()
     out = mesh_mod.launch(phase15_rank, MESH_RANKS, spec, device=device,
                           join_timeout_s=600)
@@ -2227,20 +2235,34 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
         f"{es[-1]:.6g}")
     # 15e: the fusion kernels on a rank's real inputs
     fz = out["fusion"]
-    if not (fz["scatter_ok"] and fz["merge_equal"]):
+    if not fz["scatter_ok"]:
         raise AssertionError(f"mesh fusion kernels vs plain: {fz}")
     log(f"phase15e the fusion kernels on the mesh path, golden frame 5 from "
         f"ground-truth poses: each rank's {fz['samples']} samples (its quarter) "
         f"into the compact accumulator of the frame's {fz['blocks']} touched "
         f"blocks, scatter kernel vs plain max |err| {fz['scatter_err']:.3g} "
-        f"(atol {ATOL} + rtol {RTOL}); merge_clear on each rank's shard "
-        f"({fz['na_local']} allocated slots on rank 0) = plain bit for bit")
+        f"(atol {ATOL} + rtol {RTOL})")
+    # the merge on each rank's saved inputs, in a process of its own (this
+    # one's profiler has traced an app run and counts no more device ops)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "gradient_sdf_tpu_torch", "tools",
+                                      "fusion_bench.py"),
+         "--mesh-merge-report", spec["merge"]],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase15e merge report failed:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[1:-1]:
+        log(line)
+    merge = json.loads(lines[-1])
 
     paths = {f"phase 15 (scan3d --devices {MESH_RANKS})": (launches,
                                                            MESH_TRACKED),
              "phase 15 (sharded render)": ({"raycast_march": r["launches"]},
                                            ("raycast_march",))}
-    return paths, {"scatter": fz["scatter_err"], "merge": 0.0, "march": 0.0}
+    return paths, {"scatter": fz["scatter_err"], "merge": 0.0,
+                   "march": 0.0}, merge
 
 
 # ---------------------------------------------------------------------------
@@ -2470,7 +2492,14 @@ def main():
     paths.update(phase_loaders(data, n_frames))
     noisy_paths, noisy14 = phase_noisy()
     paths.update(noisy_paths)
-    mesh_paths, mesh_errs = phase_mesh(data, straight, ba_ms, mesh_scene)
+    mesh_paths, mesh_errs, merge = phase_mesh(data, straight, ba_ms,
+                                              mesh_scene)
+    # the main path's merge is the mesh's: rank 0's timings of 15e
+    kstats["merge"].update(
+        ms=merge["ms"], event_ms=merge["event_ms"],
+        launch_floor_ms=merge["floor_ms"], plain_ms=merge["plain_ms"],
+        bound_ms=merge["bound_ms"], host_us=merge["host_us"],
+        library_ms=None, replaced_step_ms=min(merge["turns"]["old"]))
     paths.update(mesh_paths)
     t16 = time.perf_counter()
     paths.update(phase_replay(noisy14, smi))
@@ -2559,7 +2588,13 @@ def main():
         "name": "merge_clear",
         "route": "cuda",
         "source": "gradient_sdf_tpu_torch/csrc/merge_clear.cu",
-        "replaces": "gradient_sdf_tpu/ops/fusion.py:362",
+        "replaces": "gradient_sdf_tpu/parallel/sharding.py:244",
+        "also_replaces": "gradient_sdf_tpu/ops/fusion.py:362 (the full-slot "
+                         "mode, merge_clear: phase 2b's full_slot_* keys)",
+        "timed_on": "phase 15e: rank 0's merge_touched on golden frame 5 "
+                    "(the world-summed compact rows of its owned touched "
+                    "blocks; replaced_step_ms: keep_owned_rows + the "
+                    "full-slot mode over the shard's allocated slots)",
         "launches": counted_in("merge_clear")[0],
         "launches_counted_in": counted_in("merge_clear")[1],
         "bound_by": "bytes",

@@ -7,8 +7,10 @@ everything runs in float32. The hand-written CUDA kernels live in
 `csrc/` behind `ops/kernels/`: the multi-field scatter-add that replaces
 the Pallas kernel of `gradient_sdf_tpu/ops/pallas/` (`scatter_add`), one
 card's fusion of a frame in two launches (`fuse_integrate`), the mesh's
-merge (`merge_clear`), the renderer's march (`raycast_march`) and the
-Gauss-Newton tracking loop (`gn_track`).
+merge of each rank's touched blocks (`merge_clear`), the FALS normals
+(`fals_normals`), the tracker's compaction (`track_compact`), the
+renderer's march (`raycast_march`) and the Gauss-Newton tracking loop
+(`gn_track`).
 
 This package imports torch and numpy, never jax.
 """

@@ -354,7 +354,9 @@ def _loop(args, mesh, check_replicated) -> dict:
             if mesh is not None:
                 res = sharding.sharded_track_frame(
                     mesh, sdf_map.grid, depth, K, R_init, t_init,
-                    sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker)
+                    sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker,
+                    compact=sdf_map.track_buffer(depth.shape,
+                                                 cfg.tracker.sampling))
             else:
                 res = tracker_mod.track_frame(
                     sdf_map.grid, depth, K, R_init, t_init,

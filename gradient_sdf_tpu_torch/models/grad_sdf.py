@@ -38,6 +38,7 @@ class GradSdfMap:
         # the card unless the caller names another device; raises without one
         self.device = device_mod.require(device)
         self.grid = vg.create(cfg.grid, self.device)
+        self.mesh = None  # set by attach_mesh for multi-device operation
         # fusion's frame accumulator and its kernel's scratch (block marks,
         # claims, status, candidate and tile buffers): they live as long as
         # the map, the accumulator and the marks all-zero and the claims
@@ -47,7 +48,6 @@ class GradSdfMap:
         self.counter = 0
         # capacity/world-range growth events, dumped by scan3d --metrics-json
         self.growth_events: list = []
-        self.mesh = None  # set by attach_mesh for multi-device operation
         self.cache: Optional[normals.NormalEstimatorCache] = None
         # the tracker's compaction buffer (`track_buffer`), one per camera
         self._track_buf: Optional[track_compact.CompactBuffer] = None
@@ -60,8 +60,11 @@ class GradSdfMap:
         )
 
     def _new_scratch(self):
-        """The accumulator and the kernel's scratch, sized to the grid."""
-        self.acc = fusion.new_accumulator(self.grid)
+        """The accumulator and the kernel's scratch, sized to the grid. A
+        map on a mesh keeps no accumulator: its merge reads the frame's
+        summed rows in place (`sharding.sharded_fuse_frame`)."""
+        self.acc = (fusion.new_accumulator(self.grid) if self.mesh is None
+                    else None)
         self.scratch = fuse_integrate.new_scratch(self.grid)
 
     # -- multi-device -------------------------------------------------------
@@ -143,8 +146,7 @@ class GradSdfMap:
             from ..parallel import sharding
 
             self.grid = sharding.sharded_fuse_frame(
-                self.mesh, self.grid, depth, self.cache, R, t, gcfg, fcfg,
-                acc=self.acc)
+                self.mesh, self.grid, depth, self.cache, R, t, gcfg, fcfg)
         elif self.vis is not None:
             self.grid, self.vis = fusion.fuse_frame(
                 self.grid, depth, self.cache, R, t, gcfg, fcfg,

@@ -33,8 +33,9 @@ before the loop, to exactly the depth-valid count (a dynamic shape);
 `TrackerConfig.compact_cap_frac` therefore has no effect here. On the card
 the compaction is the hand-written kernel `ops/kernels/track_compact`,
 which leaves the count in device memory for the loop kernel: a tracked
-frame is two launches and one host sync, the status read. On the CPU, and
-on a mesh of ranks, it is `compact_points` (`pts_cam[mask]`).
+frame is two launches and one host sync, the status read. A mesh of ranks
+launches the same kernel and reads the count once, to slice the points over
+its ray axis. On the CPU it is `compact_points` (`pts_cam[mask]`).
 """
 
 from __future__ import annotations
@@ -164,7 +165,7 @@ def compact_points(depth: torch.Tensor, K, fcfg: FusionConfig,
     """The frame's depth-valid camera-frame points [N, 3], in row-major
     pixel order (one host sync on the card): `track_compact.compact`, the
     plain version of the compaction kernel, and the compaction of the CPU
-    path and of a mesh."""
+    path."""
     return track_compact.compact(depth, K, fcfg.z_min, fcfg.z_max,
                                  tcfg.sampling)
 

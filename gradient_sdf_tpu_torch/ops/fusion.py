@@ -36,7 +36,9 @@ memset, no host sync. `GradSdfMap.update` adds one for the growth flags.
 `_merge_accumulators` are the same steps as plain tensor passes around the
 scatter kernel (ops/kernels/scatter_add.py) and `merge_clear`
 (ops/kernels/merge_clear.py): the mesh's sharded fusion
-(`parallel/sharding.py`) runs them.
+(`parallel/sharding.py`) runs the first two and the scatter kernel, and
+merges with `merge_clear.merge_touched`; `tools/fusion_bench.py --split`
+times all four.
 
 The accumulator is all-zero on entry and on exit. `GradSdfMap` owns one for
 the life of the map, with the kernel's scratch (`fuse_integrate.new_scratch`),

@@ -92,6 +92,15 @@ def _declare(lib):
     lib.gsdf_merge_clear_f32.argtypes = (
         [vp] * 7 + [i64, i64, ctypes.c_int, vp])
     lib.gsdf_merge_clear_f32.restype = ctypes.c_int
+    # red, list, n_list, lo, m, compact, five fields, voxels_per_block,
+    # with_grad, stream
+    lib.gsdf_merge_touched_f32.argtypes = (
+        [vp, vp, i64, i64, i64, ctypes.c_int] + [vp] * 5
+        + [i64, ctypes.c_int, vp])
+    lib.gsdf_merge_touched_f32.restype = ctypes.c_int
+    # n, voxels_per_block, clear, int[2] out: a merge launch's CTAs, threads
+    lib.gsdf_merge_launch_shape.argtypes = [i64, i64, ctypes.c_int, vp]
+    lib.gsdf_merge_launch_shape.restype = ctypes.c_int
     # blocks, threads, stream: the empty kernel that measures the launch floor
     lib.gsdf_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, vp]
     lib.gsdf_empty_launch.restype = ctypes.c_int

@@ -17,19 +17,22 @@ while the others wait in an all_reduce; the group's timeout turns that into
 an error, and `check_replicated` tests it outright (tests and the card's
 smoke run it every frame).
 
-  * Tracking: each rank takes the depth-valid pixels of its ray slice and
-    resolves only the voxels its block shard owns (owner-computes), through
-    the GN residual kernel with the shard's slot window; one all_reduce of
-    the 29 sums (E, g, H's upper triangle, count) over the world per GN
-    iteration, then every rank runs the GN step kernel on the same sums.
+  * Tracking: every rank compacts the frame's depth-valid pixels with the
+    compaction kernel (`track_compact`, one read of the count), takes its
+    slice of the ray axis and resolves only the voxels its block shard owns
+    (owner-computes), through the GN residual kernel with the shard's slot
+    window; one all_reduce of the 29 sums (E, g, H's upper triangle, count)
+    over the world per GN iteration, then every rank runs the GN step
+    kernel on the same sums.
   * Fusion: each rank scatters its 1/D slice of the frame's samples. The
     touched-block set comes from one all_reduce of an int32 [nb] vector;
     the samples go through the CUDA scatter kernel into a compact
-    [cap * B^3, 8] accumulator, one all_reduce over the world sums it, each
-    rank copies the rows it owns into its persistent [nb_local * B^3, 8]
-    accumulator, and the `merge_clear` kernel merges them into the resident
-    shard. A frame that touches more than `touched_cap` blocks takes the
-    full path (a capacity-sized all_reduce, then the rank keeps its rows).
+    [cap * B^3, 8] accumulator, one all_reduce over the world sums its five
+    columns, and one `merge_touched` launch merges the summed rows of the
+    touched blocks the rank owns into the resident shard, reading them in
+    place (no host sync). A frame that touches more than `touched_cap`
+    blocks takes the full path: a capacity-sized all_reduce, whose rows
+    the same launch reads at the blocks' slots.
   * Rendering: rays over the whole world; the fields are assembled once per
     render over the blocks group; each rank runs `raycast` (the CUDA march)
     on its ray slice; the images are assembled on every rank.
@@ -56,8 +59,8 @@ from ..models import tracker as tracker_mod
 from ..ops import fusion as fusion_mod
 from ..ops import raycast as rc_mod
 from ..ops import voxel_grid as vg
-from ..ops.kernels import gn_track
-from ..ops.kernels.merge_clear import merge_clear
+from ..ops.kernels import gn_track, track_compact
+from ..ops.kernels.merge_clear import merge_touched
 from ..ops.kernels.scatter_add import new_accumulator, scatter_add_fields
 from .mesh import (BLOCK_AXIS, RAY_AXIS, WORLD, Mesh, all_gather_rows,
                    broadcast, psum, shard_rows)
@@ -160,13 +163,17 @@ def sharded_residual_pass(mesh: Mesh, grid, pts, R, t, gcfg, fcfg):
 
 
 def sharded_track_frame(mesh: Mesh, grid, depth, K, R0, t0, gcfg, fcfg,
-                        tcfg) -> tracker_mod.TrackResult:
+                        tcfg, compact: Optional[track_compact.CompactBuffer]
+                        = None) -> tracker_mod.TrackResult:
     """Gauss-Newton tracking (`tracker.gn_loop`) with the residual pass
     sharded over the mesh: the depth-valid pixels are compacted on every
-    rank, each rank takes its slice of the ray axis, and every rank runs
+    rank (`track_compact` into `compact`, the caller's buffer for such
+    frames, allocated if None; the count is read once, for the slice), each
+    rank takes its slice of the ray axis, and every rank runs
     `gn_track.gn_step` on the same replicated sums."""
-    pts = tracker_mod.compact_points(depth, K, fcfg, tcfg)
-    pts = pts[shard_rows(pts.shape[0], mesh, RAY_AXIS)].contiguous()
+    pts, count = track_compact.track_compact(depth, K, fcfg.z_min, fcfg.z_max,
+                                             tcfg.sampling, compact)
+    pts = pts[shard_rows(int(count), mesh, RAY_AXIS)]
     return tracker_mod.gn_loop(
         lambda R, t: sharded_residual_pass(mesh, grid, pts, R, t, gcfg, fcfg),
         R0, t0, tcfg, depth.device)
@@ -210,61 +217,39 @@ def compact_index(slot, local, tidx, nb: int, vpb: int, cap: int):
                        torch.full_like(cslot, cap * vpb))
 
 
-def keep_owned_rows(acc, red, tidx, lo: int, m: int, vpb: int):
-    """Copy the summed compact rows `red` [cap * B^3, 5] of the blocks this
-    rank owns (slots [lo, lo + m)) into its [m * B^3, 8] accumulator."""
-    own = (tidx >= lo) & (tidx < lo + m)
-    acc.view(m, vpb, -1)[tidx[own] - lo, :, :ACC_FIELDS] = (
-        red.view(-1, vpb, ACC_FIELDS)[:tidx.shape[0]][own])
-
-
-def shard_active(grid, lo: int, m: int) -> torch.Tensor:
-    """The shard's allocated slots, int32 on the device: slots are a dense
-    prefix [0, num_active), so the shard's are [0, num_active - lo)."""
-    return torch.clamp(grid.num_active - lo, 0, m).to(torch.int32)
-
-
 def sharded_fuse_frame(mesh: Mesh, grid, depth, cache, R, t, gcfg, fcfg, *,
-                       touched_cap: int = 0, acc: Optional[torch.Tensor] = None):
+                       touched_cap: int = 0):
     """Fuse one frame into the block-sharded grid (updated in place;
-    returned). `acc` is this rank's persistent all-zero accumulator
-    (`fusion.new_accumulator(grid)` of the shard, all-zero again on return;
-    allocated when None). `touched_cap` > 0 is the compact accumulator's
-    size in blocks, and a frame touching more blocks takes the full path;
-    0 sizes it to the frame's touched blocks. Both paths give the same
-    result."""
+    returned). `touched_cap` > 0 is the compact accumulator's size in
+    blocks, and a frame touching more blocks takes the full path; 0 sizes
+    it to the frame's touched blocks. Both paths give the same result."""
     s = fusion_mod.frame_samples(depth, cache, R, t, gcfg, fcfg)
     grid, lin, ok = fusion_mod._alloc_slots(grid, s, gcfg)   # replicated
-    if acc is None:
-        acc = fusion_mod.new_accumulator(grid)
     nb, vpb, dev = grid.num_blocks, gcfg.voxels_per_block, grid.device
-    lo, m = block_range(mesh, nb)
+    lo, _ = block_range(mesh, nb)
     lin, slot, local, fields = rank_samples(mesh, s, lin, ok, vpb, nb)
     tidx = touched_blocks(mesh, slot, nb)
     cap = int(touched_cap) if touched_cap > 0 else tidx.shape[0]
-    if tidx.shape[0] <= cap:
-        # compact: [cap * B^3] rows, one all_reduce, keep the owned rows
+    full = tidx.shape[0] > cap
+    if not full:
+        # compact: [cap * B^3] rows, one all_reduce
         lin_c = compact_index(slot, local, tidx, nb, vpb, cap)
-        acc_c = new_accumulator(cap * vpb, dev)
-        scatter_add_fields(lin_c, fields, cap * vpb, acc=acc_c[:, :ACC_FIELDS])
-        red = psum(acc_c[:, :ACC_FIELDS].contiguous(), mesh, WORLD)
-        keep_owned_rows(acc, red, tidx, lo, m, vpb)
+        acc = new_accumulator(cap * vpb, dev)
+        scatter_add_fields(lin_c, fields, cap * vpb, acc=acc[:, :ACC_FIELDS])
     else:
-        # full: a capacity-sized accumulator summed over the world, of
-        # which the rank keeps its block rows (psum + psum_scatter)
-        full = new_accumulator(nb * vpb, dev)
-        scatter_add_fields(lin, fields, nb * vpb, acc=full[:, :ACC_FIELDS])
-        red = psum(full[:, :ACC_FIELDS].contiguous(), mesh, WORLD)
-        acc[:, :ACC_FIELDS] = red[lo * vpb:(lo + m) * vpb]
-    merge_clear(acc, grid.weight, grid.dist, grid.grad_x, grid.grad_y,
-                grid.grad_z, shard_active(grid, lo, m))
+        # full: a capacity-sized accumulator summed over the world; the
+        # merge reads the rank's touched rows of it at their slots
+        acc = new_accumulator(nb * vpb, dev)
+        scatter_add_fields(lin, fields, nb * vpb, acc=acc[:, :ACC_FIELDS])
+    red = psum(acc[:, :ACC_FIELDS].contiguous(), mesh, WORLD)
+    merge_touched(red, tidx, lo, grid.weight, grid.dist, grid.grad_x,
+                  grid.grad_y, grid.grad_z, full=full)
     return grid
 
 
 def sharded_track_and_fuse_frame(mesh: Mesh, grid, depth, K, R0, t0, cache,
                                  gcfg, fcfg, tcfg, *, R_prev2=None,
-                                 t_prev2=None, warm_alpha: float = 1.0,
-                                 acc: Optional[torch.Tensor] = None):
+                                 t_prev2=None, warm_alpha: float = 1.0):
     """One multi-device Scan3D frame: sharded GN tracking, then sharded
     fusion at the refined pose if (and only if) tracking converged
     (main_scan_3d.cpp:258-266). Returns (grid, TrackResult)."""
@@ -274,7 +259,7 @@ def sharded_track_and_fuse_frame(mesh: Mesh, grid, depth, K, R0, t0, cache,
     res = sharded_track_frame(mesh, grid, depth, K, R0, t0, gcfg, fcfg, tcfg)
     if res.converged:
         grid = sharded_fuse_frame(mesh, grid, depth, cache, res.R, res.t,
-                                  gcfg, fcfg, acc=acc)
+                                  gcfg, fcfg)
     return grid, res
 
 

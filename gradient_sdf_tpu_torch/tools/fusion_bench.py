@@ -58,6 +58,21 @@ takes the normals kernel of each tree DIR (this one if none) apart instead
 (`normals_split`): one-switch builds of a copy of its `csrc/fals_normals.cu`
 (NORMALS_SWITCHES), timed on golden frame 5 beside the unswitched kernels,
 then those in turns.
+
+    python3 gradient_sdf_tpu_torch/tools/fusion_bench.py --mesh-merge [--parent DIR]
+
+times the mesh's merge step instead: a group of 4 ranks (2 rays x 2
+blocks) on this card fuses golden frames 0-4 from their poses through
+`sharded_fuse_frame` and saves each rank's frame-5 merge inputs (the
+world-summed compact rows, the touched blocks, the shard); then, in this
+process, rank by rank, `merge_touched` held to its plain version and to
+the replaced step (`keep_owned_rows` + `merge_clear`) bit for bit, and
+timed beside an empty kernel at its grid, its byte bound, the plain
+version, the one-switch builds of `MERGE_SWITCHES` (the design taken back
+step by step) and the replaced step, whose `merge_clear` is this tree's
+and, with `--parent`, the parent's `csrc/merge_clear.cu` built alone, in
+turns (`mesh_merge_times`). `--mesh-merge-report DIR` runs only the
+report, on inputs saved in DIR (chip_smoke.py phase 15e).
 """
 
 import argparse
@@ -1580,6 +1595,386 @@ def split_report(res, smi, tag):
             f"of 32 pixels in a row")
 
 
+# ---------------------------------------------------------------------------
+# the mesh's merge step (`--mesh-merge`)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS, MESH_BLOCKS = 4, 2   # 2 rays x 2 blocks, chip_smoke's phase 15
+MERGE_ROW_BYTES = 3 * 5 * 4      # red read, fields read and written, a row
+_FIELDS_EARLY = "    Voxel old{};\n    if (v < rows) old = load_voxel(f, r, with_grad);\n"
+_FIELDS_USE = "    __syncthreads();\n    if (v < rows) {\n      const float* a"
+_FIELDS_LATE = [(_FIELDS_EARLY, "    Voxel old{};\n"),
+                (_FIELDS_USE, "    __syncthreads();\n    if (v < rows) old = "
+                              "load_voxel(f, r, with_grad);\n    if (v < rows) {"
+                              "\n      const float* a")]
+# one-switch builds of csrc/merge_clear.cu that take merge_touched's design
+# back step by step: {switch name: [(anchor, replacement)]}
+MERGE_SWITCHES = {
+    "fields loaded after the stage": _FIELDS_LATE,
+    "the first design (fields after the stage, a stage's loads and stores "
+    "in turn)": _FIELDS_LATE + [(
+        "    if (k0 < n4) x0 = __ldg(p4 + k0);\n"
+        "    if (k1 < n4) x1 = __ldg(p4 + k1);\n"
+        "    if (k0 < n4) stage[k0] = x0;\n"
+        "    if (k1 < n4) stage[k1] = x1;\n",
+        "    for (int k = k0; k < n4; k += blockDim.x) stage[k] = __ldg(p4 + k);"
+        "\n    (void)x1; (void)k1;\n")],
+}
+MERGE_FUNCS = ("gsdf_merge_touched_f32",)
+
+
+def keep_owned_rows(acc, red, tidx, lo: int, m: int, vpb: int):
+    """The mesh's merge step before `merge_touched` took it over, kept to
+    time it against: copy the summed compact rows `red` [cap * B^3, 5] of
+    the blocks this rank owns (slots [lo, lo + m)) into a persistent
+    [m * B^3, 8] accumulator, which `merge_clear` then merges over the
+    shard's allocated slots (`shard_active`) and clears."""
+    own = (tidx >= lo) & (tidx < lo + m)
+    acc.view(m, vpb, -1)[tidx[own] - lo, :, :5] = (
+        red.view(-1, vpb, 5)[:tidx.shape[0]][own])
+
+
+def shard_active(num_active, lo: int, m: int):
+    """The shard's allocated slots for `merge_clear`, int32 on the device."""
+    import torch
+
+    return torch.clamp(num_active - lo, 0, m).to(torch.int32)
+
+
+def old_merge_step(acc, red, tidx, lo: int, fields, num_active):
+    """The replaced merge step: `keep_owned_rows`, then `merge_clear` over
+    the shard's allocated slots (the fields f32 [m, B^3] each)."""
+    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+
+    m, vpb = fields[0].shape
+    keep_owned_rows(acc, red, tidx, lo, m, vpb)
+    mc.merge_clear(acc, *fields, shard_active(num_active, lo, m))
+
+
+def merge_bound_touched_ms(owned_rows: int, n_list: int) -> float:
+    """Least time for the bytes `merge_touched` must move: per row of an
+    owned touched block 20 B of the summed rows read and 20 B of fields
+    read and written, and the list read."""
+    return (owned_rows * MERGE_ROW_BYTES + n_list * 8) / MEM_BYTES_PER_S * 1e3
+
+
+def mesh_merge_inputs(mesh, grid, depth, cache, R, t, gcfg, fcfg):
+    """`sharding.sharded_fuse_frame`'s steps for one frame up to its merge
+    (compact path, cap = the touched blocks), on this rank: the grid with
+    the frame's blocks claimed, and {red, tidx, lo, num_active, the scatter's
+    inputs lin_c, fields, rows and its kernel's accumulator acc}."""
+    from gradient_sdf_tpu_torch.ops import fusion
+    from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+    from gradient_sdf_tpu_torch.parallel import sharding
+
+    s = fusion.frame_samples(depth, cache, R, t, gcfg, fcfg)
+    grid, lin, ok = fusion._alloc_slots(grid, s, gcfg)
+    nb, vpb = grid.num_blocks, gcfg.voxels_per_block
+    lo, _ = sharding.block_range(mesh, nb)
+    lin, slot, local, fields = sharding.rank_samples(mesh, s, lin, ok, vpb, nb)
+    tidx = sharding.touched_blocks(mesh, slot, nb)
+    rows = tidx.shape[0] * vpb
+    lin_c = sharding.compact_index(slot, local, tidx, nb, vpb, tidx.shape[0])
+    acc = sa.new_accumulator(rows, grid.device)
+    sa.scatter_add_fields(lin_c, fields, rows, acc=acc[:, :5])
+    red = mesh_mod.psum(acc[:, :5].contiguous(), mesh, count=False)
+    return grid, {"red": red, "tidx": tidx, "lo": lo,
+                  "num_active": grid.num_active.clone(), "lin_c": lin_c,
+                  "fields": fields, "rows": rows, "acc": acc}
+
+
+def save_merge_inputs(path, grid, inp):
+    """A rank's merge inputs as CPU tensors in `path`: red, tidx, lo,
+    num_active, num_blocks and the shard's fields cut to its allocated
+    slots (`load_merge_inputs` pads them back with zeros)."""
+    import torch
+
+    m = grid.dist.shape[0]
+    na = int(shard_active(inp["num_active"], inp["lo"], m))
+    torch.save({"red": inp["red"].cpu(), "tidx": inp["tidx"].cpu(),
+                "lo": inp["lo"], "m": m, "num_blocks": grid.num_blocks,
+                "num_active": inp["num_active"].cpu(),
+                "fields": [getattr(grid, f)[:na].cpu() for f in
+                           ("weight", "dist", "grad_x", "grad_y", "grad_z")]},
+               path)
+
+
+def load_merge_inputs(path, device):
+    import torch
+
+    d = torch.load(path)
+    m = d["m"]
+    d["fields"] = [torch.cat([f, f.new_zeros((m - f.shape[0], f.shape[1]))])
+                   .to(device) for f in d["fields"]]
+    for k in ("red", "tidx", "num_active"):
+        d[k] = d[k].to(device)
+    return d
+
+
+def _bits_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def mesh_merge_check(d):
+    """`merge_touched` on a rank's inputs `d` (`load_merge_inputs`) held to
+    its plain version bit for bit, with and without gradients and at the
+    full path's source indexing (the summed rows at the blocks' slots),
+    and to the replaced step (`old_merge_step`) on the touched blocks it
+    owns, bit for bit; a touched block it does not own and an untouched one
+    keep their bits. Raises on a difference; returns {owned blocks, list
+    length, voxels of untouched allocated blocks that the replaced step's
+    dense merge moved by its (d W) / W rounding}."""
+    import torch
+    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+    from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
+
+    red, tidx, lo, fields = d["red"], d["tidx"], d["lo"], d["fields"]
+    m, vpb = fields[0].shape
+    own = (tidx >= lo) & (tidx < lo + m)
+    owned = (tidx[own] - lo).long()
+    red_full = torch.zeros((d["num_blocks"] * vpb, 5), device=red.device)
+    red_full.view(-1, vpb, 5)[tidx] = red.view(-1, vpb, 5)[:tidx.shape[0]]
+    results = {}
+    for name, src, full, grad in (("compact", red, False, True),
+                                  ("compact, no gradients", red, False, False),
+                                  ("full", red_full, True, True)):
+        got = [f.clone() for f in fields]
+        want = [f.clone() for f in fields]
+        mc.merge_touched(src, tidx, lo, *got, full=full, with_grad=grad)
+        mc.merge_touched_reference(src, tidx, lo, *want, full=full,
+                                   with_grad=grad)
+        for k, (a, b) in enumerate(zip(got, want)):
+            if not _bits_equal(a, b):
+                raise AssertionError(f"merge_touched ({name}) field {k}: "
+                                     f"kernel vs plain differ")
+        results[name] = got
+    for a, b in zip(results["compact"], results["full"]):
+        if not _bits_equal(a, b):
+            raise AssertionError("merge_touched: the full path's indexing "
+                                 "gives other bits than the compact path's")
+    old = [f.clone() for f in fields]
+    acc = sa.new_accumulator(m * vpb, red.device)
+    old_merge_step(acc, red, tidx, lo, old, d["num_active"])
+    kept = torch.ones(m, dtype=torch.bool, device=red.device)
+    kept[owned] = False
+    drift = 0
+    for k, (new, was, before) in enumerate(zip(results["compact"], old,
+                                               fields)):
+        if not _bits_equal(new[owned], was[owned]):
+            raise AssertionError(f"merge_touched field {k}: the touched "
+                                 f"blocks differ from the replaced step's")
+        if not _bits_equal(new[kept], before[kept]):
+            raise AssertionError(f"merge_touched field {k} wrote a block "
+                                 f"the list does not give this rank")
+        drift += int((was[kept] != before[kept]).sum())
+    if bool(acc.any()):
+        raise AssertionError("the replaced step left its accumulator dirty")
+    return {"owned": int(owned.numel()), "n_list": int(tidx.shape[0]),
+            "dense_drift_voxels": drift}
+
+
+def _count_step(fn):
+    """(device ops under the profiler, `nonzero` calls, host syncs,
+    `merge_clear` launches) of one `fn()`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+    from gradient_sdf_tpu_torch.tools.track_bench import count_syncs
+
+    torch.cuda.synchronize()
+    mc.reset_launch_count()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, syncs = count_syncs(fn)
+        torch.cuda.synchronize()
+    return (sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA),
+            nonzero_calls(prof), len(syncs), mc.launch_count)
+
+
+def mesh_merge_times(d, old_lib=None, variants=None):
+    """Times of the merge step on a rank's inputs `d`, on the card: the
+    kernel (`median_ms`, and events around each launch as
+    `track_bench.event_ms` takes them), an empty kernel at its grid, its
+    byte bound, the plain version, the host microseconds a wrapper call
+    takes, and the replaced step (`old_merge_step`: device ms, ops, host
+    syncs) with this tree's `merge_clear` and, given `old_lib` (an earlier
+    tree's `merge_clear.cu` built alone, `build_switched`), with that
+    kernel; `variants` {name: library} are switched builds of this
+    kernel (`MERGE_SWITCHES`), each first held to the plain version bit
+    for bit. All in turns (old, new, variants, new, variants, old)."""
+    import ctypes
+
+    import torch
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+    from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
+    from gradient_sdf_tpu_torch.tools.track_bench import event_ms
+
+    red, tidx, lo, fields = d["red"], d["tidx"], d["lo"], d["fields"]
+    m, vpb = fields[0].shape
+    n = int(tidx.shape[0])
+    owned = int(((tidx >= lo) & (tidx < lo + m)).sum())
+    spare = [f.clone() for f in fields]
+    acc = sa.new_accumulator(m * vpb, red.device)
+    lib = _build.load()
+    shape = (ctypes.c_int * 2)()
+    lib.gsdf_merge_launch_shape(n, vpb, 0, ctypes.addressof(shape))
+    ctas, threads = shape[0], shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def new():
+        mc.merge_touched(red, tidx, lo, *spare)
+
+    def empty():
+        if lib.gsdf_empty_launch(ctas, threads, stream) != 0:
+            raise AssertionError("the empty kernel did not launch")
+
+    def old():
+        old_merge_step(acc, red, tidx, lo, spare, d["num_active"])
+
+    def old_parent():
+        with_lib(old_lib, old)
+
+    def variant(lib):
+        got = [f.clone() for f in fields]
+        want = [f.clone() for f in fields]
+        with_lib(lib, lambda: mc.merge_touched(red, tidx, lo, *got))
+        mc.merge_touched_reference(red, tidx, lo, *want)
+        if not all(_bits_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("a switched merge_touched differs from plain")
+        return lambda: with_lib(lib, new)
+
+    olds = [("old", old)] + ([("old, parent kernel", old_parent)]
+                              if old_lib is not None else [])
+    others = [(k, variant(lib)) for k, lib in (variants or {}).items()]
+    turns = {}
+    for name, fn in [*olds, ("new", new), *others, ("new", new),
+                     *others[::-1], *olds[::-1]]:
+        turns.setdefault(name, []).append(median_ms(fn))
+    out = {"n_list": n, "owned": owned, "ctas": ctas, "threads": threads,
+           "turns": turns, "ms": min(turns["new"]),
+           "event_ms": event_ms(new), "floor_ms": median_ms(empty),
+           "floor_event_ms": event_ms(empty),
+           "plain_ms": median_ms(lambda: mc.merge_touched_reference(
+               red, tidx, lo, *spare)),
+           "bound_ms": merge_bound_touched_ms(owned * vpb, n),
+           "host_us": host_us(new), "old_host_us": host_us(old),
+           "ops": _count_step(new), "old_ops": _count_step(old)}
+    if bool(acc.any()):
+        raise AssertionError("the replaced step left its accumulator dirty")
+    return out
+
+
+def mesh_merge_rank(spec):
+    """One rank of `--mesh-merge`: golden frames 0-4 fused from their poses
+    through `sharded_fuse_frame`, then frame 5's merge inputs saved to
+    spec["out"]/rank<r>.pt."""
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+    from gradient_sdf_tpu_torch.ops import normals
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+    from gradient_sdf_tpu_torch.parallel import sharding
+
+    mesh = mesh_mod.make_mesh(MESH_RANKS, MESH_BLOCKS, spec["device"])
+    dev = mesh.device
+    cfg, depths, poses = spec["protocol"]
+    gcfg, fcfg = cfg.grid, cfg.fusion
+    cache = normals.build_cache(640, 480, synth.KINECT_K, fcfg.normal_window,
+                                dev)
+    grid = sharding.shard_grid(mesh, vg.create(gcfg, dev))
+
+    def frame(i):
+        return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in (depths[i], *poses[i])]
+
+    for i in range(5):
+        depth, R, t = frame(i)
+        grid = sharding.sharded_fuse_frame(mesh, grid, depth, cache, R, t,
+                                           gcfg, fcfg)
+    depth, R, t = frame(5)
+    grid, inp = mesh_merge_inputs(mesh, grid, depth, cache, R, t, gcfg, fcfg)
+    save_merge_inputs(os.path.join(spec["out"], f"rank{mesh.rank}.pt"), grid,
+                      inp)
+
+
+def mesh_merge_report(out_dir, smi, old_lib=None, variants=None,
+                      tag="mesh merge"):
+    """`mesh_merge_check` and `mesh_merge_times` on every rank's saved
+    inputs in `out_dir`, one line each. Returns {rank: times and checks}."""
+    import torch
+
+    res = {}
+    for r in range(MESH_RANKS):
+        d = load_merge_inputs(os.path.join(out_dir, f"rank{r}.pt"),
+                              torch.device("cuda"))
+        chk = mesh_merge_check(d)
+        tm = mesh_merge_times(d, old_lib, variants)
+        res[r] = {**chk, **tm}
+        ops, nz, syncs, launches = tm["ops"]
+        ops_o, nz_o, syncs_o, _ = tm["old_ops"]
+        if (ops, nz, syncs, launches) != (1, 0, 0, 1):
+            raise AssertionError(f"merge_touched made {ops} device ops, {nz} "
+                                 f"nonzero calls, {syncs} host syncs, "
+                                 f"{launches} launches; want one launch and "
+                                 f"nothing else")
+        turns = "; ".join(f"{k} " + ", ".join(f"{x:.5f}" for x in v)
+                          for k, v in tm["turns"].items())
+        log(f"{tag} rank {r} (slots [{d['lo']}, {d['lo'] + d['fields'][0].shape[0]}), "
+            f"golden frame 5, [{smi}]): {chk['owned']} of the {chk['n_list']} "
+            f"touched blocks owned; merge_touched = plain bit for bit "
+            f"(compact, no gradients, full-path indexing) = the replaced step "
+            f"on the owned blocks; {chk['dense_drift_voxels']} voxels of "
+            f"untouched allocated blocks moved by the replaced dense merge; "
+            f"kernel {tm['ms']:.5f} ms (events {tm['event_ms']:.5f}) at "
+            f"{tm['ctas']} x {tm['threads']}, an empty kernel there "
+            f"{tm['floor_ms']:.5f} (events {tm['floor_event_ms']:.5f}), bound "
+            f"{tm['bound_ms']:.6f}, plain {tm['plain_ms']:.5f}, host "
+            f"{tm['host_us']:.1f} us a call; {ops} device op(s), {nz} nonzero, "
+            f"{syncs} host sync(s); replaced step (keep_owned_rows + "
+            f"merge_clear): {ops_o} device ops, {nz_o} nonzero, {syncs_o} host "
+            f"syncs, host {tm['old_host_us']:.1f} us; ms in turns: {turns}")
+    return res
+
+
+def mesh_merge_main(parent, smi):
+    """`--mesh-merge`: the ranks' inputs made by a group of MESH_RANKS
+    ranks on this card, then the report, with the parent's `merge_clear`
+    kernel in the replaced step if `parent` is given."""
+    import shutil
+
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+
+    out = os.path.join(OWN_ROOT, "smoke_out", "fusion_bench_mesh_merge")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    mesh_mod.launch(mesh_merge_rank, MESH_RANKS,
+                    {"protocol": golden_protocol(), "out": out,
+                     "device": "cuda"}, device="cuda", join_timeout_s=600)
+    with open(os.path.join(OWN_ROOT, "gradient_sdf_tpu_torch", "csrc",
+                           "merge_clear.cu")) as f:
+        text = f.read()
+    jobs = [(name, (text, name, edits), {"fname": "merge_clear.cu",
+                                         "funcs": MERGE_FUNCS})
+            for name, edits in MERGE_SWITCHES.items()]
+    if parent:
+        with open(os.path.join(parent, "gradient_sdf_tpu_torch", "csrc",
+                               "merge_clear.cu")) as f:
+            jobs.append(("parent", (f.read(), "parent", []),
+                         {"fname": "merge_clear.cu",
+                          "funcs": ("gsdf_merge_clear_f32",),
+                          "tag": "parent-"}))
+    built = {k: lib for k, (lib, _) in build_all(jobs).items()}
+    old_lib = built.pop("parent", None)
+    mesh_merge_report(out, smi, old_lib, built)
+
+
 def run_tree(root, samples):
     cmd = [sys.executable, os.path.abspath(__file__), "--tree", root, samples]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
@@ -1600,6 +1995,14 @@ def main():
     ap.add_argument("--kernels", metavar="DIR", nargs="?", const=OWN_ROOT,
                     help="only the fusion kernels of the tree in DIR (this "
                          "one by default) taken apart (`kernel_split`)")
+    ap.add_argument("--mesh-merge", action="store_true",
+                    help="only the mesh's merge step on golden frame 5, "
+                         "each rank's inputs, beside the replaced step "
+                         "(with --parent: its kernel too)")
+    ap.add_argument("--mesh-merge-report", metavar="DIR",
+                    help="only the mesh merge report on the ranks' inputs "
+                         "saved in DIR (chip_smoke.py phase 15e); rank 0's "
+                         "numbers as the last line")
     ap.add_argument("--normals", metavar="DIR", nargs="*",
                     help="only the normals kernel of each tree DIR (this one "
                          "if none) taken apart and timed in turns "
@@ -1628,6 +2031,15 @@ def main():
     log(smi)
     if args.kernels:
         split_report(kernel_split(), smi, f"tree {args.kernels}")
+        return 0
+    if args.mesh_merge_report:
+        res = mesh_merge_report(args.mesh_merge_report, smi,
+                                tag="phase15e merge_touched")
+        print(json.dumps(res[0]), flush=True)
+        return 0
+    if args.mesh_merge:
+        mesh_merge_main(args.parent and os.path.abspath(args.parent), smi)
+        log(smi)
         return 0
     if args.normals is not None:
         normals_split_report(normals_split(

@@ -128,15 +128,12 @@ def _parallel_cases(inputs):
 
     # one track-and-fuse frame on the JAX map of three frames (the cases of
     # TRACK_AND_FUSE: converged and fused, or not converged and not fused)
-    from gradient_sdf_tpu_torch.ops import fusion as tfu
-
     for iters, start, conv in TRACK_AND_FUSE:
         _, R, t = frames[start]
         shard = sharding.shard_grid(mesh, grid3)
         shard, res = sharding.sharded_track_and_fuse_frame(
             mesh, shard, _t(d1), K, _t(R), _t(t), cache, gcfg, fcfg,
-            TrackerConfig(num_iterations=iters, conv_threshold=conv),
-            acc=tfu.new_accumulator(shard))
+            TrackerConfig(num_iterations=iters, conv_threshold=conv))
         out[f"track_and_fuse{iters}"] = (
             res.R.numpy(), res.t.numpy(), res.converged,
             _host_grid(sharding.gather_grid(mesh, shard)))
@@ -224,7 +221,7 @@ def _parallel_cases(inputs):
         m.update(inputs["growth_depth"], K, (eye, zero))
     out["growth"] = (m.growth_events, m.cfg.grid.num_blocks,
                      m.cfg.grid.dir_dim, m.grid.dist.shape[0],
-                     tuple(m.acc.shape), _host_grid(m.full_grid()))
+                     m.acc, _host_grid(m.full_grid()))
     return out if mesh.rank == 0 else None
 
 
