@@ -109,6 +109,13 @@ BA_E_RTOL = 1e-4
 BA_DIST_ATOL, BA_DIST_RTOL = 1e-6, 1e-4
 BA_POSE_ATOL = 1e-5
 BA_OUTLIERS = 1e-3
+# phase 7b: the BA kernels vs their plain versions on the card, the same
+# float32 operations on the same pairs, summed in other orders: energies
+# to 1e-5 relative, the mean intensity to 1e-6, n exactly, H and b to 1e-4
+# of their largest entry per frame (sums over 3V rows); dist as phase 7
+BA_SUMS_E_RTOL = 1e-5
+BA_MEAN_ATOL = 1e-6
+BA_SYS_RTOL = 1e-4
 # the march kernel vs its plain version on the card: the kernel's source is
 # built without fused multiply-adds and applies the plain version's float32
 # operations in its order, so every ray must agree bit for bit
@@ -757,6 +764,7 @@ def run_app(data, results, extra, data_type="synth", voxel_size="0.02"):
 
 
 def kernel_modules():
+    from gradient_sdf_tpu_torch.ops.kernels import ba_terms as ba
     from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
     from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
     from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
@@ -767,7 +775,7 @@ def kernel_modules():
 
     return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm,
             "gn_residual_reduce": gt, "fuse_integrate": fi,
-            "fals_normals": fn, "track_compact": tc}
+            "fals_normals": fn, "track_compact": tc, "ba_voxel_sums": ba}
 
 
 def reset_launch_counts():
@@ -782,6 +790,7 @@ def launch_counts():
     counts["gn_step"] = gt.step_launch_count
     counts["gn_track_loop"] = gt.loop_launch_count
     counts["fuse_claim"] = kernel_modules()["fuse_integrate"].claim_launch_count
+    counts["ba_pose_systems"] = kernel_modules()["ba_voxel_sums"].pose_launch_count
     return counts
 
 
@@ -798,6 +807,21 @@ MESH_FUSION_KERNELS = ("scatter_add", "merge_clear")
 TRACKED = FUSION_KERNELS + ("track_compact", "gn_track_loop")
 MESH_TRACKED = MESH_FUSION_KERNELS + ("track_compact", "gn_residual_reduce",
                                       "gn_step")
+# PhotoBA's decoupled alternation: `ba_voxel_sums` in modes mean, energy,
+# dist, energy and one `ba_pose_systems` (the pose step's systems)
+BA_KERNELS = ("ba_voxel_sums", "ba_pose_systems")
+
+
+def check_ba_launches(launches, energies, what):
+    """An `optimize()` that recorded `energies` (the one before BA, then
+    two per iteration) launched `ba_voxel_sums` once for the first energy
+    and four times an iteration, and `ba_pose_systems` once an iteration."""
+    it = (len(energies) - 1) // 2
+    if not (it >= 1 and launches["ba_voxel_sums"] == 1 + 4 * it
+            and launches["ba_pose_systems"] == it):
+        raise AssertionError(
+            f"{what}: kernel launches {launches} for {it} BA iterations; want "
+            f"ba_voxel_sums {1 + 4 * it} and ba_pose_systems {it}")
 
 
 def check_fusion_launches(launches, fused, ranks=1):
@@ -916,18 +940,33 @@ def translation_errors(path, truth):
             for ts, _, t in tumio.read_trajectory(path)]
 
 
-def run_photoba(data, results, extra):
+def run_photoba(data, results, extra, keep=None):
     """The PhotoBA app on the card through its CLI entry point, the kernel
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after. With a dict
+    `keep`, the BA problem and initial state the app builds
+    (`photo_ba.build_problem`'s result) are kept in it."""
     from gradient_sdf_tpu_torch.apps import photoba
+    from gradient_sdf_tpu_torch.models import photo_ba
 
     metrics_path = os.path.join(results, "metrics.json")
     os.makedirs(results, exist_ok=True)
+    build = photo_ba.build_problem
+
+    def keeping(*a, **kw):
+        keep["problem"], keep["state"] = out = build(*a, **kw)
+        keep["gcfg"] = a[6]
+        return out
+
+    if keep is not None:
+        photo_ba.build_problem = keeping
     reset_launch_counts()
     t0 = time.perf_counter()
-    photoba.main(["--input", data, "--results", results, "--data-type", "synth",
-                  "--voxel-size", "0.02", "--trunc", "5",
-                  "--metrics-json", metrics_path] + extra)
+    try:
+        photoba.main(["--input", data, "--results", results, "--data-type",
+                      "synth", "--voxel-size", "0.02", "--trunc", "5",
+                      "--metrics-json", metrics_path] + extra)
+    finally:
+        photo_ba.build_problem = build
     wall = time.perf_counter() - t0
     launches = launch_counts()
     with open(metrics_path) as f:
@@ -936,8 +975,9 @@ def run_photoba(data, results, extra):
 
 def check_photoba(m, results, launches):
     """What `tests/test_photoba_app.py` asks of the JAX app's outputs, and
-    that the run went through both kernels once per fused frame on a CUDA
-    device. Returns (fused frames, HR mesh vertices, HR cloud points)."""
+    that the run went through the fusion kernels once per fused frame and
+    the BA kernels once per BA step on a CUDA device. Returns (fused
+    frames, HR mesh vertices, HR cloud points)."""
     import math
     from gradient_sdf_tpu_torch.utils.ply import load_ply
 
@@ -953,6 +993,7 @@ def check_photoba(m, results, launches):
         raise AssertionError(f"photoba ran on {m['device']}")
     fused = m["timers"]["Integrate depth data into Sdf"]["count"]
     check_fusion_launches(launches, fused)
+    check_ba_launches(launches, es, f"photoba on {results}")
     mesh = load_ply(os.path.join(results, "coarse_BA_mesh_after_upsample.ply"))
     cloud = load_ply(os.path.join(results, "coarse_BA_cloud_after_upsample.ply"))
     if len(mesh["vertex"]) <= 100 or "red" not in mesh["vertex"].dtype.names:
@@ -1015,9 +1056,10 @@ def phase_photoba_recovery():
         os.path.join(data, "ba_init.txt"),
         [(ts, R, t + (rng.randn(3) * 0.003).astype(np.float32)) for ts, R, t in gt])
     results = os.path.join(WORK, "photoba_recovery")
+    kept = {}
     m, launches, _ = run_photoba(data, results, [
         "--key-frame", "4", "--pose-file", "gt_poses.txt",
-        "--ba-init-pose-file", "ba_init.txt"])
+        "--ba-init-pose-file", "ba_init.txt"], keep=kept)
     check_photoba(m, results, launches)
     truth = {ts: t for ts, _, t in gt}
     before = translation_errors(os.path.join(
@@ -1032,13 +1074,16 @@ def phase_photoba_recovery():
         f"keyframes, {(len(es) - 1) // 2} BA iterations in "
         f"{timer_ms(m, 'Photometric BA'):.1f} ms, energy {es[0]:.6g} -> "
         f"{es[-1]:.6g}, mean keyframe translation error "
-        f"{np.mean(before) * 1e3:.3f} -> {np.mean(after) * 1e3:.3f} mm")
+        f"{np.mean(before) * 1e3:.3f} -> {np.mean(after) * 1e3:.3f} mm, "
+        f"kernel launches {launches}")
+    return launches, kept
 
 
 def phase_ba_scale():
     """One BA alternation at F = 30, V = 102400, 640x480 images: the card
-    against the CPU from the same arrays, then the card's time, kernel
-    count and busy share."""
+    (through the BA kernels, their launches counted) against the CPU (the
+    plain versions) from the same arrays, then the card's time, kernel
+    count and busy share. Returns (ms, launches)."""
     import numpy as np
     import torch
     from gradient_sdf_tpu_torch.tools import ba_bench
@@ -1050,10 +1095,16 @@ def phase_ba_scale():
     for name in ("cuda", "cpu"):
         problem = interop.problem_from_numpy(arrays[0], name)
         state = interop.state_from_numpy(arrays[1], name)
+        reset_launch_counts()
         t0 = time.perf_counter()
         new, e_pose, e_dist = ba_bench.alternation(problem, state, gcfg, pcfg)
         out[name] = (interop.state_to_numpy(new), e_pose, e_dist,
                      (time.perf_counter() - t0) * 1e3)
+        if name == "cuda":
+            launches = launch_counts()
+    if launches["ba_voxel_sums"] != 4 or launches["ba_pose_systems"] != 1:
+        raise AssertionError(f"a card alternation launched {launches}; want "
+                             f"ba_voxel_sums 4 times, ba_pose_systems once")
     (sc, ec1, ec2, _), (sh, eh1, eh2, cpu_ms) = out["cuda"], out["cpu"]
     for what, a, b in (("after the pose step", ec1, eh1),
                        ("after the dist step", ec2, eh2)):
@@ -1084,13 +1135,96 @@ def phase_ba_scale():
         f"voxels beyond atol {BA_DIST_ATOL} + rtol {BA_DIST_RTOL} (limit "
         f"{BA_OUTLIERS:g} of them); card {ms:.2f} ms per alternation (median "
         f"of {[float(f'{r:.2f}') for r in runs]}), CPU {cpu_ms:.0f} ms (first "
-        f"call); profiler: {prof['device_events']} kernels, "
+        f"call); BA kernel launches {launches['ba_voxel_sums']} + "
+        f"{launches['ba_pose_systems']}; profiler: {prof['device_events']} kernels, "
         f"{prof['cudaLaunchKernel_calls']} cudaLaunchKernel calls, device busy "
         f"{prof['device_busy_ms']:.2f} of {prof['profiled_wall_ms']:.2f} ms "
         f"({prof['device_busy_share']:.1%}), host syncs {prof['host_syncs']}")
     for r in prof["top"][:5]:
         log(f"  phase7 top kernel: {r['ms']:.3f} ms x{r['count']} {r['name']}")
-    return ms
+    return ms, launches
+
+
+def ba_kernel_errors(problem, state, gcfg, pcfg, what):
+    """Both BA kernels against their plain versions on the card, on the
+    same inputs: energy rtol BA_SUMS_E_RTOL, dist BA_DIST_ATOL +
+    BA_DIST_RTOL with at most a BA_OUTLIERS share beyond, n exactly and the
+    mean to BA_MEAN_ATOL, H and b to BA_SYS_RTOL of their largest entry per
+    frame. Returns ba_bench.kernel_errors' dict; raises beyond."""
+    from gradient_sdf_tpu_torch.tools import ba_bench
+
+    err = ba_bench.kernel_errors(problem, state, gcfg, pcfg, BA_DIST_ATOL,
+                                BA_DIST_RTOL)
+    e, d, mn, ps = (err["energy"], err["dist"], err["mean"], err["pose"])
+    if not (e["rel_err"] <= BA_SUMS_E_RTOL and d["miss_share"] <= BA_OUTLIERS
+            and mn["n_equal"] and mn["abs_err"] <= BA_MEAN_ATOL
+            and ps["rel_err"] <= BA_SYS_RTOL and ps["symmetric"]
+            and err["repeatable"]):
+        raise AssertionError(f"BA kernels vs plain on {what}: {err}")
+    return err
+
+
+def phase_ba_kernels(kept, smi):
+    """Phase 7b: both BA kernels held to their plain versions on phase 6b's
+    BA problem (as the app built it, at its initial poses) and at phase
+    7's scale point, each loss; then, at the scale point, each timed
+    beside its bound, the plain version and an empty launch at its grid
+    (`ba_bench.kernel_report`). Returns the kernels' line entries."""
+    import dataclasses
+    from gradient_sdf_tpu_torch.tools import ba_bench
+    from gradient_sdf_tpu_torch.utils import interop
+
+    arrays = ba_bench.bench_arrays()
+    gcfg, pcfg = ba_bench.bench_configs()
+    problem = interop.problem_from_numpy(arrays[0], "cuda")
+    state = interop.state_from_numpy(arrays[1], "cuda")
+    cases = {"phase 6b's problem": (kept["problem"], kept["state"],
+                                    kept["gcfg"]),
+             "the scale point": (problem, state, gcfg)}
+    worst = {}
+    for what, (p_, s_, g_) in cases.items():
+        for loss in ("cauchy", "trunc_l2"):
+            err = ba_kernel_errors(p_, s_, g_,
+                                   dataclasses.replace(pcfg, loss=loss), what)
+            V, F = p_.vis.shape
+            log(f"phase7b BA kernels vs plain on {what} (F={F}, V={V}, loss "
+                f"{loss}): energy rel err {err['energy']['rel_err']:.3g} "
+                f"(rtol {BA_SUMS_E_RTOL}); dist max |err| "
+                f"{err['dist']['abs_err']:.3g}, {err['dist']['miss_share']:.3g} "
+                f"of voxels beyond atol {BA_DIST_ATOL} + rtol {BA_DIST_RTOL} "
+                f"(limit {BA_OUTLIERS}); n equal {err['mean']['n_equal']}, "
+                f"mean max |err| {err['mean']['abs_err']:.3g}; H, b rel err "
+                f"{err['pose']['rel_err']:.3g} (rtol {BA_SYS_RTOL} of the "
+                f"frame's largest entry), H symmetric; energy, H and b the "
+                f"same bits on a second run {err['repeatable']}")
+            for key, value in (("sums", err["dist"]["abs_err"]),
+                               ("pose", err["pose"]["abs_err"]),
+                               ("pose_rel", err["pose"]["rel_err"])):
+                worst[key] = max(worst.get(key, 0.0), value)
+    rep = ba_bench.kernel_report(problem, state, gcfg, pcfg)
+    sums, pose = rep["ba_voxel_sums"], rep["ba_pose_systems"]
+    for name, r in [(f"ba_voxel_sums ({m})", sums[m]) for m in sums] + [
+            ("ba_pose_systems", pose)]:
+        log(f"phase7b {name} at the scale point: {r['ms']:.4f} ms beside its "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
+            f"{r['operations']} operations, {r['pairs']} pairs; the taps' "
+            f"{r['distinct_sectors']} distinct sectors {r['sector_bytes_ms']:.5f} "
+            f"ms), an empty launch at its grid {r['launch_floor_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.3f} ms [{smi}]")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launch_floor_ms",
+            "bytes", "operations", "pairs", "distinct_sectors",
+            "sector_bytes_ms")
+    entries = {
+        "ba_voxel_sums": dict(
+            {k: sums["energy"][k] for k in keys},
+            max_abs_err=worst["sums"], library_ms=None,
+            **{f"{m}_{k}": sums[m][k] for m in ("dist", "mean")
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}),
+        "ba_pose_systems": dict({k: pose[k] for k in keys},
+                                max_abs_err=worst["pose"],
+                                max_rel_err=worst["pose_rel"], library_ms=None),
+    }
+    return entries
 
 
 def same_march(got, want, what):
@@ -1964,6 +2098,7 @@ def mesh_ba_case(device):
     state = interop.state_from_numpy(arrays[1], mesh.device)
     p_l, s_l = sharding.shard_ba(mesh, problem, state)
     times = []
+    reset_launch_counts()
     for _ in range(6):
         _sync(mesh.device)
         coll0 = (mesh_mod.calls, mesh_mod.nbytes)
@@ -1973,6 +2108,7 @@ def mesh_ba_case(device):
         _sync(mesh.device)
         times.append((time.perf_counter() - t0) * 1e3)
         coll = (mesh_mod.calls - coll0[0], mesh_mod.nbytes - coll0[1])
+    launches = ba_launches_over_ranks(mesh)
     got = interop.state_to_numpy(sharding.gather_ba_state(mesh, new))
     if mesh.rank != 0:
         return None
@@ -1987,7 +2123,20 @@ def mesh_ba_case(device):
                                   np.abs(got["t"] - ref["t"]).max())),
             "dist_miss": int(miss.sum()),
             "dist_err": float(np.abs(got["dist"] - ref["dist"])[~miss].max()),
-            "ms": times[len(times) // 2], "runs": times, "collectives": coll}
+            "ms": times[len(times) // 2], "runs": times, "collectives": coll,
+            "launches": launches, "steps": 6}
+
+
+def ba_launches_over_ranks(mesh):
+    """The BA kernels' launches since the counts were reset, summed over
+    the ranks of `mesh` (every rank calls it)."""
+    import torch
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+
+    counts = launch_counts()
+    x = torch.tensor([counts[k] for k in BA_KERNELS], device=mesh.device)
+    mesh_mod.psum(x, mesh, count=False)
+    return dict(zip(BA_KERNELS, x.tolist()))
 
 
 def mesh_fusion_case(spec):
@@ -2082,11 +2231,16 @@ def phase15_rank(spec):
     out["ba"] = mesh_ba_case(spec["device"])
     metrics = os.path.join(spec["photoba"], "metrics.json")
     os.makedirs(spec["photoba"], exist_ok=True)
+    reset_launch_counts()
     photoba.main(["--input", spec["textured"], "--results", spec["photoba"],
                   "--data-type", "synth", "--voxel-size", "0.02", "--trunc", "5",
                   "--key-frame", "4", "--pose-file", "gt_poses.txt",
                   "--ba-init-pose-file", "ba_init.txt", "--sharded-ba",
                   "--device", spec["device"], "--metrics-json", metrics])
+    from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
+
+    out["photoba_launches"] = ba_launches_over_ranks(
+        mesh_mod.make_mesh(MESH_RANKS, 1, spec["device"]))
     return out if torch.distributed.get_rank() == 0 else None
 
 
@@ -2211,7 +2365,9 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
     e_ok = all(abs(x - y) <= BA_E_RTOL * abs(y)
                for x, y in zip(b["energies"], b["ref_energies"]))
     if not (e_ok and b["pose_err"] <= BA_POSE_ATOL
-            and b["dist_miss"] <= BA_OUTLIERS * b["V"]):
+            and b["dist_miss"] <= BA_OUTLIERS * b["V"]
+            and b["launches"] == {"ba_voxel_sums": 4 * MESH_RANKS * b["steps"],
+                                  "ba_pose_systems": MESH_RANKS * b["steps"]}):
         raise AssertionError(f"sharded BA vs single card: {b}")
     log(f"phase15d sharded BA alternation F={b['F']} V={b['V']} over "
         f"{MESH_RANKS} ranks vs one card: energies {b['energies'][0]:.6g} / "
@@ -2222,17 +2378,21 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
         f"{BA_DIST_ATOL} + rtol {BA_DIST_RTOL}; {b['ms']:.2f} ms per "
         f"alternation (median of {[float(f'{x:.2f}') for x in b['runs']]}; "
         f"phase 7 on one card {ba_ms_7:.2f} ms); collectives "
-        f"{b['collectives'][0]} calls, {b['collectives'][1]} bytes")
+        f"{b['collectives'][0]} calls, {b['collectives'][1]} bytes; BA kernel "
+        f"launches over the ranks in {b['steps']} steps {b['launches']}")
     with open(os.path.join(spec["photoba"], "metrics.json")) as f:
         pm = json.load(f)
     es = pm["ba_energies"]
     if not (pm["mesh"]["devices"] == MESH_RANKS and es[-1] < 0.9 * es[0]
             and all(np.isfinite(es))):
         raise AssertionError(f"photoba --sharded-ba: {pm}")
+    pl = {k: v // MESH_RANKS for k, v in out["photoba_launches"].items()}
+    check_ba_launches(pl, es, "photoba --sharded-ba, per rank")
     log(f"phase15d photoba --sharded-ba on the textured spheres: "
         f"{pm['keyframes']} keyframes, {(len(es) - 1) // 2} BA iterations in "
         f"{timer_ms(pm, 'Photometric BA'):.1f} ms, energy {es[0]:.6g} -> "
-        f"{es[-1]:.6g}")
+        f"{es[-1]:.6g}; BA kernel launches over the ranks "
+        f"{out['photoba_launches']}")
     # 15e: the fusion kernels on a rank's real inputs
     fz = out["fusion"]
     if not fz["scatter_ok"]:
@@ -2259,6 +2419,9 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
 
     paths = {f"phase 15 (scan3d --devices {MESH_RANKS})": (launches,
                                                            MESH_TRACKED),
+             "phase 15d (sharded BA steps)": (b["launches"], BA_KERNELS),
+             "phase 15d (photoba --sharded-ba)": (out["photoba_launches"],
+                                                  BA_KERNELS),
              "phase 15 (sharded render)": ({"raycast_march": r["launches"]},
                                            ("raycast_march",))}
     return paths, {"scatter": fz["scatter_err"], "merge": 0.0,
@@ -2470,8 +2633,10 @@ def main():
                      "--width", "640", "--height", "480", "--arc-deg", "10",
                      "--no-noise", "--device", "cuda"])
     ba_launches = phase_photoba(ba_data, ba_frames)
-    phase_photoba_recovery()
-    ba_ms = phase_ba_scale()
+    recovery_launches, kept = phase_photoba_recovery()
+    ba_ms, scale_launches = phase_ba_scale()
+    ba_entries = phase_ba_kernels(kept, smi)
+    del kept
     scene, kstats["march"] = phase_march()
     render_launches = phase_render(scene)
     # phase 15's ranks load the render scene's grid from here
@@ -2485,7 +2650,11 @@ def main():
     phase_codecs()
     # each main path was counted from zero and launched its kernels
     paths = {"phase 4 (scan3d)": (launches, TRACKED),
-             "phase 6 (photoba)": (ba_launches, TRACKED),
+             "phase 6 (photoba)": (ba_launches, TRACKED + BA_KERNELS),
+             "phase 6b (photoba, textured, GT poses)": (
+                 recovery_launches, FUSION_KERNELS + BA_KERNELS),
+             "phase 7 (a BA alternation at the scale point)": (
+                 scale_launches, BA_KERNELS),
              "phase 9 (renders)": (render_launches, ("raycast_march",)),
              "phase 10 (scan3d base-sdf)": (base_launches, TRACKED)}
     paths.update(phase_box())
@@ -2631,6 +2800,34 @@ def main():
                     "start pose, grad mode (the loop kernel's one-pass "
                     "launch, which the mesh runs)",
         **kstats["reduce"],
+    }, {
+        "name": "ba_voxel_sums",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/ba_terms.cu",
+        "replaces": "gradient_sdf_tpu/models/photo_ba.py:140",
+        "also_replaces": "gradient_sdf_tpu/models/photo_ba.py:84 under :127 "
+                         "(the per-frame terms), :168-208 (solve_dist's "
+                         "scan) and :233-256 (_pose_terms' first scan)",
+        "launches": counted_in("ba_voxel_sums")[0],
+        "launches_counted_in": counted_in("ba_voxel_sums")[1],
+        "timed_on": "phase 7b: the scale point (F = 30, V = 102400, 640x480), "
+                    "energy mode (dist_* and mean_*: the other two modes); "
+                    "max_abs_err: the dist step's, over phase 7b's cases",
+        **ba_entries["ba_voxel_sums"],
+    }, {
+        "name": "ba_pose_systems",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/ba_terms.cu",
+        "replaces": "gradient_sdf_tpu/models/photo_ba.py:259",
+        "also_replaces": "gradient_sdf_tpu/models/photo_ba.py:211 "
+                         "(_make_frame_AJ) and the per-frame systems of "
+                         ":262-275",
+        "launches": counted_in("ba_pose_systems")[0],
+        "launches_counted_in": counted_in("ba_pose_systems")[1],
+        "timed_on": "phase 7b: the scale point, the plain n and mean "
+                    "(max_abs_err: H's and b's over phase 7b's cases; "
+                    "max_rel_err: relative to each frame's largest entry)",
+        **ba_entries["ba_pose_systems"],
     }, {
         "name": "gn_step",
         "route": "cuda",

@@ -34,14 +34,18 @@ R <- R * exp(-omega) (right-multiplicative, :585-589). The first frame is a
 keyframe in all arrays (see apps/photoba.py).
 
 What changes in PyTorch: the JAX module scans the keyframes one by one
-inside one compiled program. Eager PyTorch would pay ~60 small launches per
-frame and pass, so here every pass evaluates ALL frames at once on
-[F, V, ...] tensors and reduces over the frame axis: the launch count of a
-pass does not depend on F, and the per-voxel sums add the frames in the
-reduction's order, not strictly in frame order (float32 sums agree with
-the JAX package to tolerance, not bit for bit). The largest temporary is
-the pose Jacobian, F*V*72 bytes (216 MB at F = 30, V = 100k); the coupled
-system keeps its voxel chunking. Float32 throughout: callers on the card
+inside one compiled program. Here the per-(voxel, frame) pass of `energy`,
+`solve_dist` and the decoupled pose step (`pose_systems`) goes through
+`ops/kernels/ba_terms`: on the card two hand-written kernels that walk the
+frames of a voxel in order and keep every intermediate in registers; on
+the CPU their plain versions, which evaluate ALL frames at once on
+[F, V, ...] tensors with the plain passes below and reduce over the frame
+axis (float32 sums agree with the JAX package to tolerance, not bit for
+bit). The plain passes write the products of the projection and the
+frame sums elementwise, in the kernels' order, so that both take the same
+pairs and the same image cells. The coupled system stays plain, with its
+voxel chunking; its largest temporary is the pose Jacobian, F*V*72 bytes
+(216 MB at F = 30, V = 100k). Float32 throughout: callers on the card
 keep TF32 off (`apps/photoba.main`). With `mesh=` the optimizer shards the
 voxel axis over the ranks (`parallel/sharding.sharded_ba_step`).
 """
@@ -57,6 +61,7 @@ import torch
 from ..config import GridConfig, PhotoBAConfig
 from ..ops import voxel_grid as vg
 from ..ops.filters import bilinear_sample_grad as _bilerp_rgb
+from ..ops.kernels import ba_terms
 from ..utils import se3, tumio
 
 
@@ -79,9 +84,27 @@ class BAState(NamedTuple):
     t: torch.Tensor         # f32 [F, 3]
 
 
+def _sum3(a):
+    """a[..., 0] + a[..., 1] + a[..., 2], in that order."""
+    return a[..., 0] + a[..., 1] + a[..., 2]
+
+
+def _dot3(a, b):
+    """The dot product over the last axis of 3, in the kernels' order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _rows_times(a, R):
+    """a @ R for a [.., 3] and R [.., 3, 3] (broadcast), written out as
+    a_0 R[0] + a_1 R[1] + a_2 R[2]: a matrix product would order its sums
+    its own way on each device."""
+    return (a[..., 0:1] * R[..., 0, :] + a[..., 1:2] * R[..., 1, :]
+            + a[..., 2:3] * R[..., 2, :])
+
+
 def _surface_points(problem: BAProblem, dist: torch.Tensor, voxel_size: float):
-    ghat = problem.grad / torch.clamp(
-        torch.linalg.norm(problem.grad, dim=-1, keepdim=True), min=1e-12)
+    g = problem.grad
+    ghat = g / torch.clamp(torch.sqrt(_dot3(g, g)), min=1e-12)[:, None]
     return problem.vox.to(torch.float32) * voxel_size - dist[:, None] * ghat
 
 
@@ -90,7 +113,7 @@ def _project_sample(problem: BAProblem, x, Ri, ti, img, vis_i):
     sample the image there. Returns (A, dAdu, dAdv, p, z_inv, valid)."""
     K = problem.K
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    p = (x - ti[..., None, :]) @ Ri  # = R^T (x - t) rowwise
+    p = _rows_times(x - ti[..., None, :], Ri[..., None, :, :])  # R^T (x - t)
     z = p[..., 2]
     safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.ones_like(z))
     z_inv = 1.0 / safe_z
@@ -141,71 +164,59 @@ def _trunc_gate(pcfg: PhotoBAConfig, A, valid):
     return valid & (torch.amax(A * A, dim=-1) <= pcfg.lambda_ * pcfg.lambda_)
 
 
-def energy(problem: BAProblem, state: BAState, gcfg: GridConfig) -> torch.Tensor:
-    """Total photometric energy (getEnergy, :273-321): voxels with
-    |dist| <= voxel_size, E = sum_j sum_i |A_ij - mean_j|^2."""
-    x = _surface_points(problem, state.dist, gcfg.voxel_size)
-    gate = (torch.abs(state.dist) <= gcfg.voxel_size) & problem.vmask
-    A, _, _, _, _, valid = _project_sample(
-        problem, x, state.R, state.t, problem.images, problem.vis.T)
-    w = (valid & gate).to(torch.float32)             # [F, V]
+def _voxel_means(A, valid):
+    """Per-voxel count, 1 / count and mean intensity over the frames of the
+    pairs in `valid` [F, V]."""
+    w = valid.to(torch.float32)
     n = w.sum(dim=0)
-    sA = (w[..., None] * A).sum(dim=0)
-    sAA = (w * torch.sum(A * A, dim=-1)).sum(dim=0)
-    n_safe = torch.clamp(n, min=1.0)
-    # sum_i |A_i - mean|^2 = sum|A|^2 - |sum A|^2/N >= 0 exactly; the f32
-    # cancellation can leave a tiny negative when residuals ~ 0, so clamp
-    e_per_vox = torch.clamp(sAA - torch.sum(sA * sA, dim=-1) / n_safe, min=0.0)
-    return torch.sum(torch.where(n > 0, e_per_vox, torch.zeros_like(n)))
-
-
-def solve_dist(problem: BAProblem, state: BAState, gcfg: GridConfig,
-               pcfg: PhotoBAConfig) -> BAState:
-    """One SDF half-step (solveDist, :326-388)."""
-    x = _surface_points(problem, state.dist, gcfg.voxel_size)
-    A, dI_dp, _, valid = _per_frame_terms(
-        problem, x, state.R, state.t, problem.images, problem.vis.T,
-        channel_mix=pcfg.channel_mix_parity)
-    valid = _trunc_gate(pcfg, A, valid)
-    # Jd = dI_dp @ (-R^T g)  (unnormalized g, :181)
-    Rtg = -(problem.grad @ state.R)                  # [F, V, 3], rowwise R^T g
-    Jd = torch.sum(dI_dp * Rtg[..., None, :], dim=-1)  # [F, V, 3]
-    w = valid.to(torch.float32)[..., None]
-    n = w[..., 0].sum(dim=0)
-    sA = (w * A).sum(dim=0)
-    sJ = (w * Jd).sum(dim=0)
-    sAJ = (w * A * Jd).sum(dim=0)
-    sJJ = (w * Jd * Jd).sum(dim=0)
     inv_n = 1.0 / torch.clamp(n, min=1.0)
-    H = torch.sum(sJJ, dim=-1) - inv_n * torch.sum(sJ * sJ, dim=-1)
-    b = torch.sum(sAJ, dim=-1) - inv_n * torch.sum(sA * sJ, dim=-1)
-    H = H + pcfg.reg_weight * problem.weight
-    step = torch.where((n > 0) & (H != 0.0), pcfg.damping * b / H,
-                       torch.zeros_like(H))
-    return state._replace(dist=state.dist - step)
+    return n, inv_n, (w[..., None] * A).sum(dim=0) * inv_n[:, None]
 
 
-def _pose_terms(problem: BAProblem, state: BAState, gcfg, pcfg):
-    """Shared pass of the solve_pose variants, all frames at once: A [F,V,3],
-    Jc = [-dI_dp R^T | dI_dp skew(p)] [F,V,3,6] and valid [F,V] under the
-    solvers' gates, and the per-voxel count, 1/count and mean intensity."""
+def _pose_samples(problem: BAProblem, state: BAState, gcfg, pcfg):
+    """All frames' A [F,V,3], dI_dp [F,V,3,3] and point_cam [F,V,3], and
+    valid [F,V] under the pose step's gates (|dist| <= voxel_size, TRUNC_L2)."""
     x = _surface_points(problem, state.dist, gcfg.voxel_size)
     gate = (torch.abs(state.dist) <= gcfg.voxel_size) & problem.vmask
     A, dI_dp, p, valid = _per_frame_terms(
         problem, x, state.R, state.t, problem.images, problem.vis.T,
         channel_mix=pcfg.channel_mix_parity)
-    valid = _trunc_gate(pcfg, A, valid & gate)
-    F, V = valid.shape
-    left = -(dI_dp.reshape(F, V * 3, 3) @ state.R.transpose(-1, -2))
+    return A, dI_dp, p, _trunc_gate(pcfg, A, valid & gate)
+
+
+def _pose_jacobian(dI_dp, p, R):
+    """Jc = [-dI_dp R^T | dI_dp skew(p)] [F,V,3,6]."""
+    F, V = p.shape[:2]
+    left = -(dI_dp.reshape(F, V * 3, 3) @ R.transpose(-1, -2))
     # row d of dI_dp times skew(p) is d x p: the products of dI_dp @ hat(p)
     # without its zero terms
     right = torch.linalg.cross(dI_dp, p[..., None, :].expand_as(dI_dp))
-    Jc = torch.cat([left.reshape(F, V, 3, 3), right], dim=-1)
-    w = valid.to(torch.float32)
-    n = w.sum(dim=0)
-    inv_n = 1.0 / torch.clamp(n, min=1.0)
-    mean_A = (w[..., None] * A).sum(dim=0) * inv_n[:, None]
-    return A, Jc, valid, n, inv_n, mean_A
+    return torch.cat([left.reshape(F, V, 3, 3), right], dim=-1)
+
+
+def energy(problem: BAProblem, state: BAState, gcfg: GridConfig) -> torch.Tensor:
+    """Total photometric energy (getEnergy, :273-321): voxels with
+    |dist| <= voxel_size, E = sum_j sum_i |A_ij - mean_j|^2 (a float32
+    scalar on the problem's device)."""
+    return ba_terms.ba_voxel_sums(problem, state, gcfg, None, "energy")
+
+
+def solve_dist(problem: BAProblem, state: BAState, gcfg: GridConfig,
+               pcfg: PhotoBAConfig) -> BAState:
+    """One SDF half-step (solveDist, :326-388): per voxel
+    H = sum J^2 - (sum J)^2/N + reg_weight * weight,
+    b = sum A.J - (sum A).(sum J)/N, dist -= damping * b/H."""
+    return state._replace(
+        dist=ba_terms.ba_voxel_sums(problem, state, gcfg, pcfg, "dist"))
+
+
+def _pose_terms(problem: BAProblem, state: BAState, gcfg, pcfg):
+    """Shared pass of the coupled pose step, all frames at once: A [F,V,3],
+    Jc [F,V,3,6] and valid [F,V] under the solvers' gates, and the
+    per-voxel count, 1/count and mean intensity."""
+    A, dI_dp, p, valid = _pose_samples(problem, state, gcfg, pcfg)
+    n, inv_n, mean_A = _voxel_means(A, valid)
+    return A, _pose_jacobian(dI_dp, p, state.R), valid, n, inv_n, mean_A
 
 
 # rows of the (voxel, channel) axis per partial product in _weighted_systems
@@ -238,11 +249,11 @@ def _weighted_systems(w, wh, r, Jc):
 def pose_systems(problem: BAProblem, state: BAState, gcfg: GridConfig,
                  pcfg: PhotoBAConfig):
     """The decoupled pose step's per-frame systems (H [F,6,6], b [F,6]):
-    sums over the voxels, so a voxel-sharded step adds the ranks' ones."""
-    A, Jc, valid, n, inv_n, mean_A = _pose_terms(problem, state, gcfg, pcfg)
-    w = (valid & (n > 0)).to(torch.float32)
-    b, H = _weighted_systems(w, w * (1.0 - inv_n), A - mean_A, Jc)
-    return H, b
+    H = sum (1 - 1/N) Jc^T Jc and b = sum r^T Jc over the voxels, so a
+    voxel-sharded step adds the ranks' ones. Two passes: the per-voxel
+    count and mean, then the systems."""
+    n, mean_A = ba_terms.ba_voxel_sums(problem, state, gcfg, pcfg, "mean")
+    return ba_terms.ba_pose_systems(problem, state, gcfg, pcfg, n, mean_A)
 
 
 def apply_pose_systems(state: BAState, H: torch.Tensor,

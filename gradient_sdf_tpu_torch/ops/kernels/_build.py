@@ -32,10 +32,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # rounding (R x + t) / vs, fusion's walk which voxel a sample lands in by
 # rounding ((z + k vs) R h + t) / vs; the FALS normals' 3x3 products decide
 # which pixels pass fusion's normal gates, and the tracker's compaction
-# writes the points the GN loop rounds: all five are built without fused
-# multiply-adds, so that each and its plain PyTorch version round alike (see
-# the notes in the sources).
-SOURCE_FLAGS = {"raycast_march.cu": ["-fmad=false"],
+# writes the points the GN loop rounds; PhotoBA's pass decides which image
+# cell a (voxel, frame) pair samples by flooring u = fx p0 / z + cx: all six
+# are built without fused multiply-adds, so that each and its plain PyTorch
+# version round alike (see the notes in the sources).
+SOURCE_FLAGS = {"ba_terms.cu": ["-fmad=false"],
+                "raycast_march.cu": ["-fmad=false"],
                 "gn_track.cu": ["-fmad=false"],
                 "fuse_integrate.cu": ["-fmad=false"],
                 "fals_normals.cu": ["-fmad=false"],
@@ -153,6 +155,21 @@ def _declare(lib):
     # H, W, sampling, stream: the empty kernel at the compaction's launch
     lib.gsdf_track_compact_empty.argtypes = [ctypes.c_int] * 3 + [vp]
     lib.gsdf_track_compact_empty.restype = ctypes.c_int
+    # PhotoBA's pass: V -> the CTAs of a launch; the most frames it takes
+    lib.gsdf_ba_ctas.argtypes = [ctypes.c_longlong]
+    lib.gsdf_ba_ctas.restype = ctypes.c_int
+    lib.gsdf_ba_max_frames.argtypes = []
+    lib.gsdf_ba_max_frames.restype = ctypes.c_int
+    # a BAArgs structure (ba_terms.BAArgs), mode, out0, out1, partials,
+    # stream
+    lib.gsdf_ba_voxel_sums_f32.argtypes = [vp, ctypes.c_int] + [vp] * 4
+    lib.gsdf_ba_voxel_sums_f32.restype = ctypes.c_int
+    # BAArgs, n, mean, partials, H, b, stream
+    lib.gsdf_ba_pose_systems_f32.argtypes = [vp] * 7
+    lib.gsdf_ba_pose_systems_f32.restype = ctypes.c_int
+    # V, stream: the empty kernel at the launch of V voxels
+    lib.gsdf_ba_empty.argtypes = [ctypes.c_longlong, vp]
+    lib.gsdf_ba_empty.restype = ctypes.c_int
 
 
 def declare_gn_track_loop(lib):

@@ -143,6 +143,12 @@ def point_to_voxel(points: torch.Tensor, voxel_size: float) -> torch.Tensor:
     return torch.round(points / voxel_size).to(torch.int32)
 
 
+def voxel_to_point(voxel_idx: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """Voxel index -> world-space voxel center (reference `vox2float`), in
+    float32 on the index's device."""
+    return voxel_idx.to(torch.float32) * voxel_size
+
+
 def voxel_to_block(voxel_idx: torch.Tensor, cfg: GridConfig):
     """Split voxel index into (block coords, intra-block linear offset);
     floor division, so negative indices land in the block below."""
@@ -187,6 +193,20 @@ def lookup_voxels(grid: VoxelGrid, voxel_idx: torch.Tensor, cfg: GridConfig):
     present = slot >= 0
     lin = torch.where(present, slot, torch.zeros_like(slot))
     return lin * cfg.voxels_per_block + local, present
+
+
+def lookup_coarse(grid: VoxelGrid, points: torch.Tensor, cfg: GridConfig):
+    """World points (…,3) -> coarse-cell occupancy (bool); False outside
+    the representable volume. Cells of `block_shape * COARSE_FACTOR` voxels
+    are found by floor division, so negative indices round down."""
+    cell = cfg.block_shape * COARSE_FACTOR  # voxels per coarse cell edge
+    C = cfg.dir_dim // COARSE_FACTOR
+    c = torch.div(point_to_voxel(points, cfg.voxel_size), cell,
+                  rounding_mode="floor") + C // 2
+    in_range = torch.all((c >= 0) & (c < C), dim=-1)
+    lin = torch.clamp((c[..., 0] * C + c[..., 1]) * C + c[..., 2], 0,
+                      C * C * C - 1)
+    return (grid.coarse_occ[lin.long()] > 0) & in_range
 
 
 # ---------------------------------------------------------------------------

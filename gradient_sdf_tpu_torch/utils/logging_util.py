@@ -1,14 +1,17 @@
 """Structured logging (port of `gradient_sdf_tpu/utils/logging_util.py`).
 
 The reference logs with raw std::cout everywhere (SURVEY.md §5.5); here a
-thin wrapper over Python logging. Per-run metrics are the app's
-`--metrics-json` dict.
+thin wrapper over Python logging, and `MetricsRecorder`, a per-frame and
+per-run metrics record dumped as JSON (the apps' own `--metrics-json` dict
+is separate).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import sys
+import time
 
 _LOGGER = None
 
@@ -26,3 +29,23 @@ def get_logger(name: str = "gradient_sdf_tpu_torch") -> logging.Logger:
             logger.setLevel(logging.INFO)
         _LOGGER = logger
     return _LOGGER
+
+
+class MetricsRecorder:
+    """Append-only per-frame metrics and a per-run dict, dumped as one JSON
+    object {"run": ..., "frames": [...]}."""
+
+    def __init__(self):
+        self.frames = []
+        self.run = {}
+
+    def log_frame(self, **kv):
+        kv.setdefault("wall_time", time.time())
+        self.frames.append(kv)
+
+    def set(self, **kv):
+        self.run.update(kv)
+
+    def dump(self, path: str):
+        with open(path, "w") as f:
+            json.dump({"run": self.run, "frames": self.frames}, f, indent=2)

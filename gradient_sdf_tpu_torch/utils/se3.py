@@ -163,6 +163,12 @@ def se3_apply(R, t, points):
     return _matvec(R, points) + t
 
 
+def identity(dtype=torch.float32, device=None):
+    """The identity pose (I3, 0)."""
+    return (torch.eye(3, dtype=dtype, device=device),
+            torch.zeros(3, dtype=dtype, device=device))
+
+
 # ---------------------------------------------------------------------------
 # Quaternion conversions (TUM trajectory format: tx ty tz qx qy qz qw;
 # reference writes these at cpp/depth_scanning/src/main_scan_3d.cpp:267-280)

@@ -47,3 +47,26 @@ def write_trajectory(path: str, entries):
                 f"{ts} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
                 f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n"
             )
+
+
+def ate_rmse(traj_est, traj_gt, align: bool = True) -> float:
+    """Absolute trajectory error (RMSE of translation) after an optional
+    rigid Horn alignment, in float64. `traj_*`: lists of (ts, R, t),
+    paired by exact timestamp string. Raises ValueError under 3 pairs.
+    (`utils/ate.ate_rmse` is the TUM tool's nearest-stamp variant.)"""
+    gt_map = {ts: t for ts, _, t in traj_gt}
+    pairs = [(t, gt_map[ts]) for ts, _, t in traj_est if ts in gt_map]
+    if len(pairs) < 3:
+        raise ValueError("not enough matched timestamps for ATE")
+    est = np.array([p[0] for p in pairs], dtype=np.float64)
+    gt = np.array([p[1] for p in pairs], dtype=np.float64)
+    if align:
+        mu_e, mu_g = est.mean(0), gt.mean(0)
+        E, G = est - mu_e, gt - mu_g
+        U, _, Vt = np.linalg.svd(E.T @ G)
+        S = np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))])
+        R = Vt.T @ S @ U.T
+        est = (R @ E.T).T + mu_g
+        gt = G + mu_g
+    err = est - gt
+    return float(np.sqrt((err * err).sum(axis=1).mean()))
