@@ -21,7 +21,11 @@ and the high-resolution exports; phase 6), the same app on textured
 spheres from ground-truth poses with BA started from perturbed poses
 (phase 6b: BA has to win energy and pose error back), and one BA
 alternation at F = 30 keyframes x V = 102400 voxels x 640x480 images, card
-against CPU (phase 7). Phase 4b holds the tracker's compaction kernel
+against CPU (phase 7); phase 7b holds both BA kernels to their plain
+versions on 6b's problem, at that scale point and on its data cut to 8
+frames (the dense paths) and to 33 and 70 (the full-card paths), and times
+them on 6b's problem and at the scale point.
+Phase 4b holds the tracker's compaction kernel
 (`csrc/track_compact.cu`) to `compact_points` and the GN loop kernel (one
 launch each a tracked frame, one host sync: the status read; the two
 launches enqueued under sync debug mode "error") to its plain version at
@@ -1043,18 +1047,10 @@ def phase_photoba_recovery():
     errors before and after are printed, not checked: the texture pins the
     cameras to the surface, not to the world, so they may move together."""
     import numpy as np
-    from gradient_sdf_tpu_torch.apps import make_synth
-    from gradient_sdf_tpu_torch.utils import tumio
+    from gradient_sdf_tpu_torch.tools import ba_bench
 
     data = os.path.join(WORK, "textured")
-    make_synth.main(["--out", data, "--frames", "8", "--seed", "2", "--width",
-                     "640", "--height", "480", "--arc-deg", "6", "--no-noise",
-                     "--gray-texture", "--device", "cuda"])
-    gt = tumio.read_trajectory(os.path.join(data, "gt_poses.txt"))
-    rng = np.random.RandomState(3)
-    tumio.write_trajectory(
-        os.path.join(data, "ba_init.txt"),
-        [(ts, R, t + (rng.randn(3) * 0.003).astype(np.float32)) for ts, R, t in gt])
+    gt = ba_bench.textured_data(data)
     results = os.path.join(WORK, "photoba_recovery")
     kept = {}
     m, launches, _ = run_photoba(data, results, [
@@ -1164,23 +1160,43 @@ def ba_kernel_errors(problem, state, gcfg, pcfg, what):
     return err
 
 
+# phase 7b's cases beyond phase 6b's problem and the scale point: V not a
+# multiple of a warp's 32 voxels or a CTA's 160; the dense paths' longest
+# chunk (8 frames, at most a warp a scheduler: 16,896 voxels on 132 SMs)
+# and, on the full-card paths, more frames than a chunk of 32 (tails of 1
+# and 6 frames); each case checks its path
+BA_TILING_CASES = ((8, 12345, "dense"), (33, 12345, "full card"),
+                   (70, 6789, "full card"), (70, 17011, "full card"))
+
+
 def phase_ba_kernels(kept, smi):
     """Phase 7b: both BA kernels held to their plain versions on phase 6b's
-    BA problem (as the app built it, at its initial poses) and at phase
-    7's scale point, each loss; then, at the scale point, each timed
-    beside its bound, the plain version and an empty launch at its grid
-    (`ba_bench.kernel_report`). Returns the kernels' line entries."""
+    BA problem (as the app built it, at its initial poses), at phase 7's
+    scale point and on the scale point's data cut to BA_TILING_CASES'
+    frames and voxels, each loss; then, at the scale point and on phase
+    6b's problem, each timed beside its bound, the plain version and an
+    empty launch at its grid (`ba_bench.kernel_report`). Returns the
+    kernels' line entries."""
     import dataclasses
+    from gradient_sdf_tpu_torch.ops.kernels import _build
     from gradient_sdf_tpu_torch.tools import ba_bench
     from gradient_sdf_tpu_torch.utils import interop
 
-    arrays = ba_bench.bench_arrays()
     gcfg, pcfg = ba_bench.bench_configs()
-    problem = interop.problem_from_numpy(arrays[0], "cuda")
-    state = interop.state_from_numpy(arrays[1], "cuda")
+
+    def on_card(arrays):
+        return (interop.problem_from_numpy(arrays[0], "cuda"),
+                interop.state_from_numpy(arrays[1], "cuda"), gcfg)
+
     cases = {"phase 6b's problem": (kept["problem"], kept["state"],
                                     kept["gcfg"]),
-             "the scale point": (problem, state, gcfg)}
+             "the scale point": on_card(ba_bench.bench_arrays())}
+    for F, V, path in BA_TILING_CASES:
+        if _build.load().gsdf_ba_dense(V, F) != (path == "dense"):
+            raise AssertionError(f"a launch over {V} voxels and {F} frames "
+                                 f"does not take the {path} paths")
+        cases[f"the scale point's data at F={F}, V={V} ({path} paths)"] = (
+            on_card(ba_bench.bench_arrays(F=F, V=V)))
     worst = {}
     for what, (p_, s_, g_) in cases.items():
         for loss in ("cauchy", "trunc_l2"):
@@ -1201,28 +1217,39 @@ def phase_ba_kernels(kept, smi):
                                ("pose", err["pose"]["abs_err"]),
                                ("pose_rel", err["pose"]["rel_err"])):
                 worst[key] = max(worst.get(key, 0.0), value)
-    rep = ba_bench.kernel_report(problem, state, gcfg, pcfg)
-    sums, pose = rep["ba_voxel_sums"], rep["ba_pose_systems"]
-    for name, r in [(f"ba_voxel_sums ({m})", sums[m]) for m in sums] + [
-            ("ba_pose_systems", pose)]:
-        log(f"phase7b {name} at the scale point: {r['ms']:.4f} ms beside its "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
-            f"{r['operations']} operations, {r['pairs']} pairs; the taps' "
-            f"{r['distinct_sectors']} distinct sectors {r['sector_bytes_ms']:.5f} "
-            f"ms), an empty launch at its grid {r['launch_floor_ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.3f} ms [{smi}]")
+    reps = {}
+    for what in ("the scale point", "phase 6b's problem"):
+        p_, s_, g_ = cases[what]
+        reps[what] = rep = ba_bench.kernel_report(p_, s_, g_, pcfg)
+        sums, pose = rep["ba_voxel_sums"], rep["ba_pose_systems"]
+        for name, r in [(f"ba_voxel_sums ({m})", sums[m]) for m in sums] + [
+                ("ba_pose_systems", pose)]:
+            log(f"phase7b {name} on {what}: {r['ms']:.4f} ms beside its "
+                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} "
+                f"B, {r['operations']} operations, {r['pairs']} pairs; the "
+                f"taps' {r['distinct_sectors']} distinct sectors "
+                f"{r['sector_bytes_ms']:.5f} ms), an empty launch at its grid "
+                f"{r['launch_floor_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms "
+                f"[{smi}]")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launch_floor_ms",
             "bytes", "operations", "pairs", "distinct_sectors",
             "sector_bytes_ms")
+    brief = ("ms", "plain_ms", "bound_ms", "bound_by", "launch_floor_ms")
+    sums = reps["the scale point"]["ba_voxel_sums"]
+    pose = reps["the scale point"]["ba_pose_systems"]
+    sums6, pose6 = (reps["phase 6b's problem"]["ba_voxel_sums"],
+                    reps["phase 6b's problem"]["ba_pose_systems"])
     entries = {
         "ba_voxel_sums": dict(
             {k: sums["energy"][k] for k in keys},
             max_abs_err=worst["sums"], library_ms=None,
             **{f"{m}_{k}": sums[m][k] for m in ("dist", "mean")
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}),
+               for k in brief[:4]},
+            phase6b={m: {k: sums6[m][k] for k in brief} for m in sums6}),
         "ba_pose_systems": dict({k: pose[k] for k in keys},
                                 max_abs_err=worst["pose"],
-                                max_rel_err=worst["pose_rel"], library_ms=None),
+                                max_rel_err=worst["pose_rel"], library_ms=None,
+                                phase6b={k: pose6[k] for k in brief}),
     }
     return entries
 
@@ -2811,7 +2838,8 @@ def main():
         "launches": counted_in("ba_voxel_sums")[0],
         "launches_counted_in": counted_in("ba_voxel_sums")[1],
         "timed_on": "phase 7b: the scale point (F = 30, V = 102400, 640x480), "
-                    "energy mode (dist_* and mean_*: the other two modes); "
+                    "energy mode (dist_* and mean_*: the other two modes; "
+                    "phase6b: each mode on phase 6b's problem); "
                     "max_abs_err: the dist step's, over phase 7b's cases",
         **ba_entries["ba_voxel_sums"],
     }, {
@@ -2825,8 +2853,9 @@ def main():
         "launches": counted_in("ba_pose_systems")[0],
         "launches_counted_in": counted_in("ba_pose_systems")[1],
         "timed_on": "phase 7b: the scale point, the plain n and mean "
-                    "(max_abs_err: H's and b's over phase 7b's cases; "
-                    "max_rel_err: relative to each frame's largest entry)",
+                    "(phase6b: on phase 6b's problem; max_abs_err: H's and "
+                    "b's over phase 7b's cases; max_rel_err: relative to "
+                    "each frame's largest entry)",
         **ba_entries["ba_pose_systems"],
     }, {
         "name": "gn_step",

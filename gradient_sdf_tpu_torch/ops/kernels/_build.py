@@ -160,6 +160,10 @@ def _declare(lib):
     lib.gsdf_ba_ctas.restype = ctypes.c_int
     lib.gsdf_ba_max_frames.argtypes = []
     lib.gsdf_ba_max_frames.restype = ctypes.c_int
+    # V, F -> 1 if a launch over V voxels and F frames takes the dense
+    # paths, 0 if not
+    lib.gsdf_ba_dense.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+    lib.gsdf_ba_dense.restype = ctypes.c_int
     # a BAArgs structure (ba_terms.BAArgs), mode, out0, out1, partials,
     # stream
     lib.gsdf_ba_voxel_sums_f32.argtypes = [vp, ctypes.c_int] + [vp] * 4
@@ -170,6 +174,10 @@ def _declare(lib):
     # V, stream: the empty kernel at the launch of V voxels
     lib.gsdf_ba_empty.argtypes = [ctypes.c_longlong, vp]
     lib.gsdf_ba_empty.restype = ctypes.c_int
+    # F, int[10] out: the CTAs an SM holds of each BA kernel (full-card and
+    # dense instances), SMs, threads
+    lib.gsdf_ba_occupancy.argtypes = [ctypes.c_longlong, vp]
+    lib.gsdf_ba_occupancy.restype = ctypes.c_int
 
 
 def declare_gn_track_loop(lib):

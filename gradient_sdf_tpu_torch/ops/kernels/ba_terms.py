@@ -17,8 +17,9 @@ the "mean" mode's n and mean.
 The JAX package runs this pass as one compiled `lax.scan` over the frames
 with per-voxel carries (`gradient_sdf_tpu/models/photo_ba.py:127-275`); it
 has no TPU kernel. On the card it is the hand-written CUDA of
-`csrc/ba_terms.cu` (see the note there: a thread a voxel, the frames in
-order, every intermediate in registers, fixed-order reductions): on a CUDA
+`csrc/ba_terms.cu` (see the note there: a warp a group of 32 voxels,
+the frames gated first and the passing pairs' taps loaded in batches,
+fixed-order reductions, no barrier a frame): on a CUDA
 tensor each wrapper launches its kernel or raises; on a CPU tensor it takes
 its plain version, `ba_voxel_sums_reference` or
 `ba_pose_systems_reference`, built from `models/photo_ba`'s plain passes
@@ -200,7 +201,8 @@ def ba_voxel_sums(problem, state, gcfg, pcfg, mode: str):
     out1 = partials = None
     if mode == "energy":
         out0 = torch.empty(1, **f32)
-        partials = torch.empty(lib.gsdf_ba_ctas(V), **f32)
+        # one energy partial a warp of 32 voxels
+        partials = torch.empty(-(-V // 32), **f32)
     elif mode == "dist":
         out0 = torch.empty(V, **f32)
     else:

@@ -3,7 +3,7 @@
 (needs one CUDA card).
 
     python3 gradient_sdf_tpu_torch/tools/ba_bench.py [--frames F] [--voxels V]
-        [--kernels] [--parent DIR]
+        [--kernels [DIR ...]] [--sweep] [--phase6] [--parent DIR] [--out FILE]
 
 The problem is the scale point of the JAX package's benchmark: F = 30
 keyframes of 640x480 random images, V = 102400 surface voxels with random
@@ -24,15 +24,41 @@ of `torch.cuda.max_memory_allocated` over one alternation, above what the
 problem and state hold.
 
 `--kernels` adds each kernel of `ops/kernels/ba_terms` (`ba_voxel_sums` in
-its three modes, `ba_pose_systems`) held to its plain version on these
-inputs (`kernel_errors`) and timed beside its bound (`ba_sums_bound_ms`,
+its three modes, `ba_pose_systems`) held to its plain version
+(`kernel_errors`) and timed beside its bound (`ba_sums_bound_ms`,
 `pose_systems_bound_ms`: bytes, operations, the distinct 32-byte sectors
 of the image taps), the plain version and an empty launch at its grid
-(`kernel_report`). `--parent DIR` (an earlier checkout, e.g. unpacked with
-`git archive`) runs `tree_report` of DIR's tree and of this one in turns,
-parent, this, this, parent, each in its own process through its own
-package (`--tree DIR` is what the script passes to itself): the parent's
-calls are its plain passes, this tree's the kernels.
+(`kernel_report`), at the scale point and on phase 6b's problem of
+`chip_smoke.py` (`textured_problem`: textured spheres, BA started ~3 mm
+off). Then it takes apart the kernels of each tree DIR (this one if none;
+with `--parent P` and no DIR, P and this one) by one-switch builds of a
+copy of DIR's `csrc/ba_terms.cu` under this tree's build directory
+(`BA_SWITCHES`, one set per design; the package's source is never
+switched), launched through this tree's wrapper: each build's kernels
+timed at the scale point, the unswitched ones held to the plain versions
+and to the first tree's outputs and timed in turns (roots in order, then
+in reverse) at the scale point, on phase 6b's problem and on the scale
+point's data cut to 8 frames, with the ptxas report and the CTAs an SM
+holds (occupancy API) and the waves at V and V / 4 (`kernel_split`). `--parent DIR` (an earlier checkout, e.g.
+unpacked with `git archive`) also runs `tree_report` of DIR's tree and of
+this one in turns, parent, this, this, parent, each in its own process
+through its own package (`--tree DIR` is what the script passes to
+itself). `--out FILE` writes the whole JSON there too.
+
+`--sweep` times this tree's kernels with every launch forced onto the
+dense and onto the full-card paths (two switches of `BA_SWITCHES`) on the
+scale point's data cut to each of `SWEEP_FRAMES` x `SWEEP_VOXELS`
+(`path_sweep`): where the two paths cross.
+
+`--phase6` runs `chip_smoke.py`'s phase 6 (the PhotoBA app on 14 VGA
+frames of flat-coloured spheres, `phase6_data`) in each tree in turns
+(parent, this, this, parent with `--parent`, else this twice), each in a
+process of its own (`phase6_report`): the app's BA energies and its BA
+timer, the process's first BA; then, on one BA problem shared by all turns
+(the first turn's, saved under `smoke_out/ba_bench/phase6`), the
+optimizer's energies, final poses and wall time, run twice, and one
+alternation's host time (`phase6_compare` sets the trees' results side by
+side).
 """
 
 import argparse
@@ -77,6 +103,58 @@ def bench_configs():
     from gradient_sdf_tpu_torch.config import GridConfig, PhotoBAConfig
 
     return GridConfig(voxel_size=0.01), PhotoBAConfig()
+
+
+def textured_data(out):
+    """Phase 6b's data (`chip_smoke.py`): 8 VGA frames of the spheres with a
+    grey texture over a 6 degree arc, and `ba_init.txt`, the ground-truth
+    poses with each translation moved by ~3 mm (`RandomState(3)`)."""
+    import numpy as np
+    from gradient_sdf_tpu_torch.apps import make_synth
+    from gradient_sdf_tpu_torch.utils import tumio
+
+    make_synth.main(["--out", out, "--frames", "8", "--seed", "2", "--width",
+                     "640", "--height", "480", "--arc-deg", "6", "--no-noise",
+                     "--gray-texture", "--device", "cuda"])
+    gt = tumio.read_trajectory(os.path.join(out, "gt_poses.txt"))
+    rng = np.random.RandomState(3)
+    tumio.write_trajectory(
+        os.path.join(out, "ba_init.txt"),
+        [(ts, R, t + (rng.randn(3) * 0.003).astype(np.float32))
+         for ts, R, t in gt])
+    return gt
+
+
+# the PhotoBA app's flags of phase 6b, after its data folder
+TEXTURED_FLAGS = ["--data-type", "synth", "--voxel-size", "0.02", "--trunc",
+                  "5", "--key-frame", "4", "--pose-file", "gt_poses.txt",
+                  "--ba-init-pose-file", "ba_init.txt"]
+
+
+def textured_problem():
+    """(problem, state, gcfg) of phase 6b: the BA problem and initial state
+    the PhotoBA app builds (`photo_ba.build_problem`) from `textured_data`,
+    fused on the card; the app runs to its end under `smoke_out/ba_bench`."""
+    from gradient_sdf_tpu_torch.apps import photoba
+    from gradient_sdf_tpu_torch.models import photo_ba
+
+    work = os.path.join(OWN_ROOT, "smoke_out", "ba_bench")
+    data, results = os.path.join(work, "textured"), os.path.join(work, "results")
+    os.makedirs(results, exist_ok=True)
+    textured_data(data)
+    build, kept = photo_ba.build_problem, {}
+
+    def keeping(*a, **kw):
+        kept["problem"], kept["state"] = out = build(*a, **kw)
+        kept["gcfg"] = a[6]
+        return out
+
+    photo_ba.build_problem = keeping
+    try:
+        photoba.main(["--input", data, "--results", results] + TEXTURED_FLAGS)
+    finally:
+        photo_ba.build_problem = build
+    return kept["problem"], kept["state"], kept["gcfg"]
 
 
 def alternation(problem, state, gcfg, pcfg):
@@ -410,10 +488,559 @@ def kernel_report(problem, state, gcfg, pcfg):
     return {"ba_voxel_sums": sums, "ba_pose_systems": pose}
 
 
-def run_tree(root, frames, voxels):
-    """`tree_report` of the package in `root`, in a process of its own."""
+# The BA kernels taken apart (`kernel_split`): one-switch builds of a copy
+# of a tree's `csrc/ba_terms.cu`, made as fusion_bench's SPLIT_SWITCHES.
+# Per design (a string only its source holds): switch name -> edits.
+# Results of a switched build are timings only.
+_CONST_TAPS_PR16 = (
+    "    const float i00 = __ldg(r0 + 3 * u0 + c), i01 = __ldg(r0 + 3 * u1 + c);\n"
+    "    const float i10 = __ldg(r1 + 3 * u0 + c), i11 = __ldg(r1 + 3 * u1 + c);",
+    "    const float i00 = 0.25f * c + fu, i01 = 0.5f + fv, i10 = 0.125f * c,\n"
+    "                i11 = 0.75f;")
+_STAGE_VIS_FN = (
+    "template <int kMode>\n__global__ void __launch_bounds__(kThreads)\n"
+    "    ba_voxel_sums(",
+    "// the CTA's visibility rows (F <= 32) in shared memory, coalesced\n"
+    "__device__ __forceinline__ void stage_vis(const Problem& P,\n"
+    "                                          unsigned char* sh) {\n"
+    "  if (P.F > 32) return;\n"
+    "  const int rows = min(kThreads, P.V - static_cast<int>(blockIdx.x) * kThreads);\n"
+    "  const size_t base = static_cast<size_t>(blockIdx.x) * kThreads * P.F;\n"
+    "  for (int i = threadIdx.x; i < rows * P.F; i += kThreads)\n"
+    "    sh[i] = P.vis[base + i];\n"
+    "}\n\n"
+    "template <int kMode>\n__global__ void __launch_bounds__(kThreads)\n"
+    "    ba_voxel_sums(")
+BA_SWITCHES = {
+    "a thread a voxel, frames in series": (
+        "float(*out)[kPoseTerms] = stage[f & 1];", {
+            "(a) taps replaced by a constant": [_CONST_TAPS_PR16],
+            "(b) visibility rows staged in shared memory first": [
+                _STAGE_VIS_FN,
+                ("  __shared__ float warp_e[kWarps];\n"
+                 "  const Intrinsics k = load_frames(P, pose);",
+                 "  __shared__ float warp_e[kWarps];\n"
+                 "  __shared__ unsigned char vis_sh[kThreads * 32];\n"
+                 "  stage_vis(P, vis_sh);\n"
+                 "  const Intrinsics k = load_frames(P, pose);"),
+                ("    const unsigned char* vis = P.vis + static_cast<size_t>(v) * P.F;",
+                 "    const unsigned char* vis =\n"
+                 "        P.F <= 32 ? vis_sh + threadIdx.x * P.F\n"
+                 "                  : P.vis + static_cast<size_t>(v) * P.F;"),
+                ("  __shared__ float stage[2][kWarps][kPoseTerms];\n"
+                 "  const Intrinsics k = load_frames(P, pose);",
+                 "  __shared__ float stage[2][kWarps][kPoseTerms];\n"
+                 "  __shared__ unsigned char vis_sh[kThreads * 32];\n"
+                 "  stage_vis(P, vis_sh);\n"
+                 "  const Intrinsics k = load_frames(P, pose);"),
+                ("  const unsigned char* vis =\n"
+                 "      P.vis + static_cast<size_t>(active ? v : 0) * P.F;",
+                 "  const unsigned char* vis =\n"
+                 "      P.F <= 32 ? vis_sh + threadIdx.x * P.F\n"
+                 "                : P.vis + static_cast<size_t>(active ? v : 0) * P.F;")],
+            "(c) pose systems without the per-frame stage and barrier "
+            "(wrong sums)": [(
+                "    float(*out)[kPoseTerms] = stage[f & 1];\n"
+                "    if (__any_sync(kFull, take)) {\n"
+                "#pragma unroll\n"
+                "      for (int j = 0; j < kPoseTerms; ++j) {\n"
+                "        const float t = warp_sum(terms[j]);\n"
+                "        if (lane == 0) out[warp][j] = t;\n"
+                "      }\n"
+                "    } else if (lane == 0) {\n"
+                "#pragma unroll\n"
+                "      for (int j = 0; j < kPoseTerms; ++j) out[warp][j] = 0.0f;\n"
+                "    }\n",
+                "    float(*out)[kPoseTerms] = stage[f & 1];\n"
+                "    if (__any_sync(kFull, take)) {\n"
+                "#pragma unroll\n"
+                "      for (int j = 0; j < kPoseTerms; ++j) {\n"
+                "        const float t = warp_sum(terms[j]);\n"
+                "        if (lane == 0 && warp == 0)\n"
+                "          partials[(static_cast<size_t>(blockIdx.x) * P.F + f) *\n"
+                "                   kPoseTerms + j] = t;\n"
+                "      }\n"
+                "    }\n"
+                "    continue;\n")],
+        }),
+    "a warp 32 voxels; dense launches: each lane its frames in batches; "
+    "launches that fill the card: gate, then pairs compacted": (
+        "template <int kMode, bool kDense>", {
+            "(a) taps replaced by a constant": [(
+                "    t.i00[c] = __ldg(r0 + 3 * u0 + c);\n"
+                "    t.i01[c] = __ldg(r0 + 3 * u1 + c);\n"
+                "    t.i10[c] = __ldg(r1 + 3 * u0 + c);\n"
+                "    t.i11[c] = __ldg(r1 + 3 * u1 + c);",
+                "    t.i00[c] = 0.25f * c + t.fu;\n"
+                "    t.i01[c] = 0.5f + t.fv;\n"
+                "    t.i10[c] = 0.125f * c;\n"
+                "    t.i11[c] = 0.75f;")],
+            "inputs and visibility only (wrong sums)": [
+                ("      const unsigned pass =\n"
+                 "          transpose_bits(gate_by_frame(P, k, pose, f0, vis, xs, lane), lane);",
+                 "      const unsigned pass = 0;\n"
+                 "      if (vis == 0x5a5a5a5au) out0[0] = 0.0f;"),
+                ("      unsigned left =\n"
+                 "          take ? (f0 == 0 ? vis0 : own_visible_frames(P, v, f0)) : 0u;",
+                 "      unsigned left = 0;\n"
+                 "      if ((take ? vis0 : 1u) == 0x5a5a5a5au) out0[0] = 0.0f;"),
+                ("      const unsigned by_frame = gate_by_frame(P, k, pose, f0, vis, xs, lane);",
+                 "      const unsigned by_frame = 0;\n"
+                 "      if (vis == 0x5a5a5a5au) partials[0] = 0.0f;"),
+                ("      const unsigned seen =\n"
+                 "          active ? (f0 == 0 ? vis0 : own_visible_frames(P, v, f0)) : 0u;",
+                 "      const unsigned seen = 0;\n"
+                 "      if ((active ? vis0 : 1u) == 0x5a5a5a5au) partials[0] = 0.0f;")],
+            "visibility and gate only, full-card paths (wrong sums)": [
+                ("      const int cnt = __popc(pass);",
+                 "      if (pass == 0x5a5a5a5au) out0[0] = 0.0f;\n"
+                 "      const int cnt = 0;"),
+                ("      const int off = lane_offsets(__popc(by_frame), lane, total);",
+                 "      if (by_frame == 0x5a5a5a5au) partials[0] = 0.0f;\n"
+                 "      const int off = lane_offsets(0, lane, total);")],
+            "the full-card paths in every launch": [(
+                "  return F <= kDenseFrames && (V + 31) / 32 <= 4 * static_cast<int64_t>(sms);",
+                "  return sms < 0 && F < 0;")],
+            "the dense paths in every launch": [(
+                "  return F <= kDenseFrames && (V + 31) / 32 <= 4 * static_cast<int64_t>(sms);",
+                "  return sms >= 0 || F < 0;")],
+            "one pair a lane a round for energy and mean (full-card "
+            "paths)": [(
+                "constexpr int kBatch = 2;", "constexpr int kBatch = 1;")],
+            "three frames a lane at once (dense paths)": [(
+                "constexpr int kDenseBatch = 2;", "constexpr int kDenseBatch = 3;")],
+            "the dist sums in registers, the visibility of the next chunk "
+            "loaded last (full-card paths)": [
+                ("    // the dist step's channel sums: sA, sJ, sAJ, sJJ (3 each), a column a\n"
+                 "    // lane\n"
+                 "    float* sums = rows + kRound * kRow + lane;\n"
+                 "#pragma unroll\n"
+                 "    for (int c = 0; c < RowOf<kMode>::kSums; ++c) sums[32 * c] = 0.0f;\n",
+                 ""),
+                ("    const unsigned takes = __ballot_sync(kFull, take);\n"
+                 "    for (int f0 = 0; f0 < P.F; f0 += kChunk) {\n"
+                 "      // lane r: the frames of the chunk whose image its voxel's point lands in\n"
+                 "      const unsigned vis =\n"
+                 "          (f0 == 0 ? vis0 : visible_voxels(P, v0, f0, lane)) & takes;",
+                 "    unsigned next = vis0;\n"
+                 "    for (int f0 = 0; f0 < P.F; f0 += kChunk) {\n"
+                 "      const unsigned vis = next & __ballot_sync(kFull, take);"),
+                ("          if constexpr (kMode == kDist) {\n"
+                 "            // Sums::add's sums, each in the same order\n"
+                 "            acc.n += 1.0f;\n"
+                 "#pragma unroll\n"
+                 "            for (int c = 0; c < 3; ++c) {\n"
+                 "              const float Jd = row[3 + c];\n"
+                 "              sums[32 * c] += A[c];\n"
+                 "              sums[32 * (3 + c)] += Jd;\n"
+                 "              sums[32 * (6 + c)] += A[c] * Jd;\n"
+                 "              sums[32 * (9 + c)] += Jd * Jd;\n"
+                 "            }\n"
+                 "          } else {\n"
+                 "            const float Jd[3] = {0.0f, 0.0f, 0.0f};\n"
+                 "            acc.add(A, Jd);\n"
+                 "          }",
+                 "          float Jd[3] = {0.0f, 0.0f, 0.0f};\n"
+                 "          if (kMode == kDist) {\n"
+                 "#pragma unroll\n"
+                 "            for (int c = 0; c < 3; ++c) Jd[c] = row[3 + c];\n"
+                 "          }\n"
+                 "          acc.add(A, Jd);"),
+                ("    if constexpr (kMode == kDist) {\n"
+                 "#pragma unroll\n"
+                 "      for (int c = 0; c < 3; ++c) {\n"
+                 "        acc.sA[c] = sums[32 * c];\n"
+                 "        acc.sJ[c] = sums[32 * (3 + c)];\n"
+                 "        acc.sAJ[c] = sums[32 * (6 + c)];\n"
+                 "        acc.sJJ[c] = sums[32 * (9 + c)];\n"
+                 "      }\n"
+                 "    }\n",
+                 ""),
+                ("        __syncwarp();\n"
+                 "      }\n"
+                 "    }\n"
+                 "  }\n"
+                 "  if (kMode == kEnergy) {",
+                 "        __syncwarp();\n"
+                 "      }\n"
+                 "      if (f0 + kChunk < P.F) next = visible_voxels(P, v0, f0 + kChunk, lane);\n"
+                 "    }\n"
+                 "  }\n"
+                 "  if (kMode == kEnergy) {")],
+        }),
+}
+BA_FUNCS = ("gsdf_ba_ctas", "gsdf_ba_max_frames", "gsdf_ba_voxel_sums_f32",
+            "gsdf_ba_pose_systems_f32", "gsdf_ba_empty", "gsdf_ba_occupancy")
+# the occupancy report, appended to a source that lacks it (the
+# thread-a-voxel design's: every kernel with F x 48 bytes of dynamic shared
+# memory)
+OCCUPANCY_PROBE = r"""
+extern "C" int gsdf_ba_occupancy(long long F, int* out) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&out[4], cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], ba_voxel_sums<kEnergy>, kThreads, pose_smem(F));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], ba_voxel_sums<kDist>, kThreads, pose_smem(F));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], ba_voxel_sums<kMean>, kThreads, pose_smem(F));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], ba_pose_systems,
+                                                kThreads, pose_smem(F));
+  out[5] = kThreads;
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+KERNEL_CALLS = ("energy", "dist", "mean", "pose")
+# `kernel_split`'s third problem: a full-card launch whose one chunk has 8
+# frames (a quarter of a warp's lanes gate)
+SHORT_FRAMES = 8
+
+
+def occupancy(lib, V, F):
+    """CTAs an SM holds of each kernel (`KERNEL_CALLS` order, from the
+    occupancy API; `dense_ctas_per_sm`: the dense paths' instances, where
+    the source has them), the SMs, the
+    threads a CTA, the CTAs of a launch over V voxels and the waves that
+    launch takes at V and at V / 4 (a mesh rank's share)."""
+    import ctypes
+
+    out = (ctypes.c_int * 10)()
+    rc = lib.gsdf_ba_occupancy(F, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"gsdf_ba_occupancy failed: CUDA error {rc}")
+    per_sm = dict(zip(KERNEL_CALLS, out[:4]))
+    sms, threads = out[4], out[5]
+    dense = dict(zip(KERNEL_CALLS, out[6:10]))
+    waves = {}
+    for name, v in (("V", V), ("V/4", V // 4)):
+        ctas = lib.gsdf_ba_ctas(v)
+        waves[name] = {"voxels": v, "ctas": ctas, **{
+            k: -(-ctas // (c * sms)) if c > 0 else None
+            for k, c in per_sm.items()}}
+    return {"ctas_per_sm": per_sm, "sms": sms, "threads": threads,
+            "waves": waves, "dense_ctas_per_sm": dense}
+
+
+def kernel_calls(problem, state, gcfg, pcfg, n, mean):
+    """{call: fn} of the four kernel calls of an alternation, the pose
+    systems on the given n and mean."""
+    from gradient_sdf_tpu_torch.ops.kernels import ba_terms as bt
+
+    out = {m: (lambda m=m: bt.ba_voxel_sums(problem, state, gcfg, pcfg, m))
+           for m in ("energy", "dist", "mean")}
+    out["pose"] = lambda: bt.ba_pose_systems(problem, state, gcfg, pcfg, n,
+                                             mean)
+    return out
+
+
+def _same(a, b):
+    import torch
+
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+# `path_sweep`'s frame and voxel counts: below, at and above a chunk's
+# half (16 frames) and the line of 4 warps an SM (16,896 voxels on 132
+# SMs), the mesh rank's share of the scale point (V / 4 = 25,600) and the
+# scale point
+SWEEP_FRAMES = (4, 8, 12, 16, 24, 30)
+SWEEP_VOXELS = (4608, 9216, 16896, 25600, 51200, 102400)
+SWEEP_BUILDS = ("the full-card paths in every launch",
+                "the dense paths in every launch")
+
+
+def cut_problem(problem, state, F, V):
+    """The first F frames and V voxels of a (BAProblem, BAState)."""
+    p = problem._replace(vox=problem.vox[:V], grad=problem.grad[:V],
+                         weight=problem.weight[:V], vmask=problem.vmask[:V],
+                         vis=problem.vis[:V, :F].contiguous(),
+                         images=problem.images[:F])
+    return p, state._replace(dist=state.dist[:V], R=state.R[:F],
+                             t=state.t[:F])
+
+
+def path_sweep(frames=SWEEP_FRAMES, voxels=SWEEP_VOXELS):
+    """This tree's four kernel calls (`KERNEL_CALLS`) timed (`median_ms`)
+    with every launch forced onto each path (`SWEEP_BUILDS`, built
+    together under their own directories), in turns (in order, then in
+    reverse), on the scale point's data cut to each of `frames` x `voxels`;
+    with the path the package takes there (`gsdf_ba_dense`). Returns a
+    dict."""
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.ops.kernels import ba_terms as bt
+    from gradient_sdf_tpu_torch.tools import fusion_bench as fb
+    from gradient_sdf_tpu_torch.utils import interop
+
+    jobs, _ = fb.switch_jobs([OWN_ROOT], "ba_terms.cu", BA_SWITCHES, BA_FUNCS)
+    # a directory of their own: a library already loaded from the same
+    # path (`kernel_split`'s first tree) would be handed back by dlopen
+    built = fb.build_all([(key, a, dict(kw, tag="sweep-"))
+                          for key, a, kw in jobs if key[1] in SWEEP_BUILDS])
+    arrays = bench_arrays(max(frames), max(voxels))
+    problem = interop.problem_from_numpy(arrays[0], "cuda")
+    state = interop.state_from_numpy(arrays[1], "cuda")
+    gcfg, pcfg = bench_configs()
+    order = list(SWEEP_BUILDS) + list(SWEEP_BUILDS)[::-1]
+    rows = []
+    for F in frames:
+        for V in voxels:
+            p, st = cut_problem(problem, state, F, V)
+            n, mean = bt.ba_voxel_sums_reference(p, st, gcfg, pcfg, "mean")
+            calls = kernel_calls(p, st, gcfg, pcfg, n, mean)
+            turns = [(name, {m: fb.median_ms(
+                lambda f=f, lib=built[(0, name)][0]: fb.with_lib(lib, f))
+                for m, f in calls.items()}) for name in order]
+            rows.append({"frames": F, "voxels": V,
+                         "dense": bool(_build.load().gsdf_ba_dense(V, F)),
+                         "turns": turns})
+    return {"rows": rows}
+
+
+def path_sweep_report(res, smi):
+    for row in res["rows"]:
+        print(f"paths at F={row['frames']}, V={row['voxels']} (the package "
+              f"takes the {'dense' if row['dense'] else 'full-card'} paths) "
+              f"[{smi}]: " + " | ".join(
+                  f"{name}: " + ", ".join(f"{c} {v:.4f}" for c, v in ms.items())
+                  for name, ms in row["turns"]), flush=True)
+
+
+# the PhotoBA app's flags of phase 6 (`chip_smoke.py`), after its data folder
+PHASE6_FLAGS = ["--data-type", "synth", "--voxel-size", "0.02", "--trunc",
+                "5", "--key-frame", "5"]
+PHASE6_DIR = os.path.join(OWN_ROOT, "smoke_out", "ba_bench", "phase6")
+
+
+def phase6_data(out):
+    """Phase 6's data (`chip_smoke.py`): 14 VGA frames of the spheres with
+    flat colours, 10 degrees of arc a frame, no noise, rendered on the card."""
+    from gradient_sdf_tpu_torch.apps import make_synth
+
+    make_synth.main(["--out", out, "--frames", "14", "--seed", "2", "--width",
+                     "640", "--height", "480", "--arc-deg", "10", "--no-noise",
+                     "--device", "cuda"])
+
+
+def phase6_report(data, problem_file):
+    """This process's package on phase 6's data (module note): the app's
+    run (BA energies, its BA timer in ms, the BA kernels' launches where the
+    tree counts them), then the optimizer twice on the BA problem in
+    `problem_file` (written from this run's problem if it is not there):
+    its energies, final R and t, wall ms; and one alternation's host ms."""
+    import dataclasses
+
+    import torch
+    from gradient_sdf_tpu_torch.apps import photoba
+    from gradient_sdf_tpu_torch.config import GridConfig
+    from gradient_sdf_tpu_torch.models import photo_ba
+
+    results = os.path.join(PHASE6_DIR, f"run-{os.getpid()}")
+    os.makedirs(results, exist_ok=True)
+    build, kept = photo_ba.build_problem, {}
+
+    def keeping(*a, **kw):
+        kept["problem"], kept["state"] = got = build(*a, **kw)
+        kept["gcfg"] = a[6]
+        return got
+
+    counts = None
+    if has_kernels():
+        from gradient_sdf_tpu_torch.ops.kernels import ba_terms as bt
+        bt.reset_launch_count()
+    photo_ba.build_problem = keeping
+    metrics = os.path.join(results, "metrics.json")
+    try:
+        photoba.main(["--input", data, "--results", results, "--metrics-json",
+                      metrics] + PHASE6_FLAGS)
+    finally:
+        photo_ba.build_problem = build
+    if has_kernels():
+        counts = [bt.launch_count, bt.pose_launch_count]
+    with open(metrics) as f:
+        m = json.load(f)
+    out = {"app": {"ba_energies": m["ba_energies"],
+                   "ba_ms": m["timers"]["Photometric BA"]["total_s"] * 1e3,
+                   "sums_and_pose_launches": counts}}
+    if not os.path.exists(problem_file):
+        torch.save({"problem": {k: v.cpu() for k, v in
+                                kept["problem"]._asdict().items()},
+                    "state": {k: v.cpu() for k, v in
+                              kept["state"]._asdict().items()},
+                    "gcfg": dataclasses.asdict(kept["gcfg"])}, problem_file)
+    saved = torch.load(problem_file)
+    problem = photo_ba.BAProblem(**{k: v.cuda() for k, v in
+                                    saved["problem"].items()})
+    state = photo_ba.BAState(**{k: v.cuda() for k, v in
+                                saved["state"].items()})
+    gcfg = GridConfig(**saved["gcfg"])
+    _, pcfg = bench_configs()
+    runs = []
+    for _ in range(2):
+        opt = photo_ba.PhotometricOptimizer(problem, state, gcfg, pcfg,
+                                            verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        converged = opt.optimize()
+        torch.cuda.synchronize()
+        runs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "energies": opt.energies, "converged": bool(converged),
+                     "R": opt.state.R.cpu().numpy().tolist(),
+                     "t": opt.state.t.cpu().numpy().tolist()})
+    out["shared_problem"] = {
+        "voxels": int(problem.vis.shape[0]), "frames": int(problem.vis.shape[1]),
+        "runs": runs,
+        "runs_equal": runs[0]["energies"] == runs[1]["energies"]
+        and runs[0]["R"] == runs[1]["R"] and runs[0]["t"] == runs[1]["t"]}
+    out["alternation_ms"] = alternation_ms(problem, state, gcfg, pcfg)
+    return out
+
+
+def phase6_compare(roots):
+    """`phase6_report` of each (name, root) in turn, each in its own
+    process, on one copy of phase 6's data; with each turn's energies and
+    final poses beside the first turn's on the shared problem."""
+    import shutil
+
+    import numpy as np
+
+    shutil.rmtree(PHASE6_DIR, ignore_errors=True)
+    data = os.path.join(PHASE6_DIR, "data")
+    phase6_data(data)
+    problem_file = os.path.join(PHASE6_DIR, "problem.pt")
+    turns = []
+    for name, root in roots:
+        r = run_tree(root, 0, 0, ["--phase6-data", data, "--problem",
+                                  problem_file])
+        r["tree"] = name
+        turns.append(r)
+    first = turns[0]["shared_problem"]["runs"][0]
+    for r in turns:
+        run = r["shared_problem"]["runs"][0]
+        r["vs_first_turn"] = {
+            "same_energies": run["energies"] == first["energies"],
+            "R_max_abs_diff": float(np.abs(np.subtract(run["R"], first["R"])).max()),
+            "t_max_abs_diff": float(np.abs(np.subtract(run["t"], first["t"])).max())}
+    return turns
+
+
+def phase6_compare_report(turns, smi):
+    for r in turns:
+        sp = r["shared_problem"]
+        print(f"phase 6 in turns, {r['tree']} [{smi}]: the app's BA "
+              f"{r['app']['ba_ms']:.2f} ms, energies "
+              f"{[float(f'{e:.6g}') for e in r['app']['ba_energies']]}, "
+              f"(sums, pose) launches {r['app']['sums_and_pose_launches']}; "
+              f"on the shared problem (F = {sp['frames']}, V = {sp['voxels']}) "
+              f"the optimizer {sp['runs'][0]['ms']:.2f} / {sp['runs'][1]['ms']:.2f} "
+              f"ms, energies {sp['runs'][0]['energies']}, two runs equal "
+              f"{sp['runs_equal']}, vs the first turn {r['vs_first_turn']}; "
+              f"one alternation {r['alternation_ms'][0]:.3f} ms", flush=True)
+
+
+def kernel_split(roots, problems):
+    """Step 0 of the BA kernels, and the designs side by side: for each
+    tree root in `roots`, its `csrc/ba_terms.cu` built as it is and under
+    each switch of its design (BA_SWITCHES), with `OCCUPANCY_PROBE` added
+    where the source has no occupancy report; all builds started together.
+    Every build's four kernel calls timed (`median_ms`) on each of
+    `problems` ({name: (problem, state, gcfg, pcfg)}); the unswitched builds
+    held to the plain versions (`kernel_errors`) and to the first root's
+    outputs (bit for bit) on each problem, and timed in turns there (roots
+    in order, then in reverse). Returns a dict."""
+    from gradient_sdf_tpu_torch.ops.kernels import ba_terms as bt
+    from gradient_sdf_tpu_torch.tools import fusion_bench as fb
+
+    jobs, designs = fb.switch_jobs(roots, "ba_terms.cu", BA_SWITCHES,
+                                   BA_FUNCS)
+    probe = ("\n// gsdf_ba_empty:", OCCUPANCY_PROBE + "\n// gsdf_ba_empty:")
+    jobs = [(key, (text, name, edits + ([probe] if "gsdf_ba_occupancy"
+                                        not in text else [])), kw)
+            for key, (text, name, edits), kw in jobs]
+    built = fb.build_all(jobs)
+    ref = {}
+    for name, (p, s, g, c) in problems.items():
+        ref[name] = bt.ba_voxel_sums_reference(p, s, g, c, "mean")
+    first = next(iter(problems))
+    p0, s0, g0, c0 = problems[first]
+    V, F = p0.vis.shape
+    out = {"problems": {k: list(v[0].vis.shape) for k, v in problems.items()},
+           "trees": []}
+    results = {}
+    for k, root in enumerate(roots):
+        tree = {"root": root, "design": designs[k], "ms": {}, "ptxas": {}}
+        for (kk, name), (lib, log) in built.items():
+            if kk != k:
+                continue
+            tree["ms"][name] = {}
+            for what, (p, s, g, c) in problems.items():
+                calls = kernel_calls(p, s, g, c, *ref[what])
+                tree["ms"][name][what] = {
+                    m: fb.median_ms(lambda f=f: fb.with_lib(lib, f))
+                    for m, f in calls.items()}
+            tree["ptxas"][name] = fb.ptxas_lines(log, "ba_")
+        lib = built[(k, "as it is")][0]
+        tree["empty_launch_ms"] = fb.median_ms(
+            lambda: lib.gsdf_ba_empty(V, _stream()))
+        tree["occupancy"] = occupancy(lib, V, F)
+        tree["errors"], tree["same_bits_as_first"] = {}, {}
+        for name, (p, s, g, c) in problems.items():
+            tree["errors"][name] = fb.with_lib(
+                lib, lambda: kernel_errors(p, s, g, c))
+            got = {m: fb.with_lib(lib, f) for m, f in kernel_calls(
+                p, s, g, c, *ref[name]).items()}
+            results[(k, name)] = got
+            tree["same_bits_as_first"][name] = {
+                m: _same(got[m], results[(0, name)][m]) for m in got}
+        out["trees"].append(tree)
+    order = list(range(len(roots)))
+    out["turns"] = {name: [] for name in problems}
+    for name, (p, s, g, c) in problems.items():
+        for k in order + order[::-1]:
+            lib = built[(k, "as it is")][0]
+            calls = kernel_calls(p, s, g, c, *ref[name])
+            out["turns"][name].append((roots[k], {
+                m: fb.median_ms(lambda f=f: fb.with_lib(lib, f))
+                for m, f in calls.items()}))
+    return out
+
+
+def _stream():
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def kernel_split_report(res, smi):
+    """One line a fact of `kernel_split`'s result."""
+    for t in res["trees"]:
+        print(f"ba_terms of {t['root']} ({t['design']}) [{smi}]: empty "
+              f"launch at its grid {t['empty_launch_ms']:.4f} ms; occupancy "
+              f"{json.dumps(t['occupancy'])}")
+        for name, per in t["ms"].items():
+            print(f"  {name}: " + " | ".join(
+                f"{what}: " + ", ".join(f"{c} {v:.4f}" for c, v in ms.items())
+                for what, ms in per.items()))
+        for name, lines in t["ptxas"].items():
+            for k, v in lines.items():
+                print(f"  ptxas ({name}) {k}: {v}")
+        for name, err in t["errors"].items():
+            print(f"  vs plain on {name}: {json.dumps(err)}; the same bits "
+                  f"as the first tree: "
+                  f"{json.dumps(t['same_bits_as_first'][name])}")
+    for name, turns in res["turns"].items():
+        print(f"ba_terms in turns on {name} [{smi}]: " + " | ".join(
+            f"{r}: " + ", ".join(f"{c} {v:.4f}" for c, v in ms.items())
+            for r, ms in turns))
+
+
+def run_tree(root, frames, voxels, extra=()):
+    """`tree_report` of the package in `root` (with `extra` arguments, what
+    they ask for instead), in a process of its own."""
     cmd = [sys.executable, os.path.abspath(__file__), "--tree", root,
-           "--frames", str(frames), "--voxels", str(voxels)]
+           "--frames", str(frames), "--voxels", str(voxels), *extra]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           env=dict(os.environ, PYTHONPATH=root))
     if proc.returncode != 0:
@@ -425,13 +1052,25 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--voxels", type=int, default=100 * 1024)
-    ap.add_argument("--kernels", action="store_true",
+    ap.add_argument("--kernels", nargs="*", metavar="DIR",
                     help="also hold each kernel to its plain version and time "
-                         "it beside its bound (`kernel_report`)")
+                         "it beside its bound (`kernel_report`), then take "
+                         "apart the kernels of each tree DIR (this one if "
+                         "none; with --parent and no DIR, the parent's and "
+                         "this one) by one-switch builds (`kernel_split`)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time this tree's kernels on each path over "
+                         "SWEEP_FRAMES x SWEEP_VOXELS (`path_sweep`)")
+    ap.add_argument("--phase6", action="store_true",
+                    help="run chip_smoke.py's phase 6 in each tree in turns "
+                         "(`phase6_compare`)")
+    ap.add_argument("--phase6-data", help=argparse.SUPPRESS)
+    ap.add_argument("--problem", help=argparse.SUPPRESS)
     ap.add_argument("--parent", help="checkout of an earlier commit whose "
                     "alternation is timed in turns with this tree's")
     ap.add_argument("--tree", help="measure the package in DIR alone and print "
                     "one JSON line (what --parent runs per tree)")
+    ap.add_argument("--out", help="also write the JSON result to this file")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree or OWN_ROOT))
     import torch
@@ -442,21 +1081,50 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.tree:
-        print(json.dumps(tree_report(args.frames, args.voxels)), flush=True)
+        out = (phase6_report(args.phase6_data, args.problem) if args.phase6_data
+               else tree_report(args.frames, args.voxels))
+        print(json.dumps(out), flush=True)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     out = {"this": tree_report(args.frames, args.voxels)}
-    if args.kernels:
+    if args.kernels is not None:
         from gradient_sdf_tpu_torch.utils import interop
 
         problem, state = bench_arrays(args.frames, args.voxels)
         problem = interop.problem_from_numpy(problem, "cuda")
         state = interop.state_from_numpy(state, "cuda")
-        out["kernels"] = kernel_report(problem, state, *bench_configs())
-        out["kernel_errors"] = kernel_errors(problem, state, *bench_configs())
+        gcfg, pcfg = bench_configs()
+        tp, ts, tg = textured_problem()
+        problems = {"the scale point": (problem, state, gcfg, pcfg),
+                    "phase 6b's problem": (tp, ts, tg, pcfg)}
+        out["kernels"] = {name: kernel_report(*args_)
+                          for name, args_ in problems.items()}
+        out["kernel_errors"] = {name: kernel_errors(*args_)
+                                for name, args_ in problems.items()}
+        # the split also times a launch that fills the card with a chunk
+        # of 8 frames
+        short = bench_arrays(SHORT_FRAMES, args.voxels)
+        problems[f"the scale point's data at F={SHORT_FRAMES}"] = (
+            interop.problem_from_numpy(short[0], "cuda"),
+            interop.state_from_numpy(short[1], "cuda"), gcfg, pcfg)
+        roots = [os.path.abspath(d) for d in args.kernels] or (
+            [os.path.abspath(args.parent), OWN_ROOT] if args.parent
+            else [OWN_ROOT])
+        out["split"] = kernel_split(roots, problems)
+        kernel_split_report(out["split"], smi)
+    if args.sweep:
+        out["sweep"] = path_sweep()
+        path_sweep_report(out["sweep"], smi)
+    if args.phase6:
+        roots = ([("parent", os.path.abspath(args.parent))] if args.parent
+                 else []) + [("this", OWN_ROOT), ("this", OWN_ROOT)]
+        if args.parent:
+            roots.append(roots[0])
+        out["phase6"] = phase6_compare(roots)
+        phase6_compare_report(out["phase6"], smi)
     if args.parent:
         parent = os.path.abspath(args.parent)
         out["turns"] = [
@@ -464,6 +1132,9 @@ def main():
             for name, root in [("parent", parent), ("this", OWN_ROOT),
                                ("this", OWN_ROOT), ("parent", parent)]]
     out["device"] = smi
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)
     return 0
 

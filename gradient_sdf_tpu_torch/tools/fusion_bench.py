@@ -1777,24 +1777,32 @@ def mesh_merge_check(d):
             "dense_drift_voxels": drift}
 
 
-def _count_step(fn):
+def _count_step(fn, tries=3):
     """(device ops under the profiler, `nonzero` calls, host syncs,
-    `merge_clear` launches) of one `fn()`."""
+    `merge_clear` launches) of one `fn()`. A trace that holds no device op
+    although `merge_clear` counted a launch has lost its device events (seen
+    once on an H100 in `chip_smoke.py`'s phase 15e, for a kernel that the
+    run's other traces caught), so `fn()` is counted again, up to `tries`
+    times; the counts returned are those of the last trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
     from gradient_sdf_tpu_torch.tools.track_bench import count_syncs
 
-    torch.cuda.synchronize()
-    mc.reset_launch_count()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, syncs = count_syncs(fn)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return (sum(e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA),
-            nonzero_calls(prof), len(syncs), mc.launch_count)
+        mc.reset_launch_count()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, syncs = count_syncs(fn)
+            torch.cuda.synchronize()
+        out = (sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+               nonzero_calls(prof), len(syncs), mc.launch_count)
+        if out[0] or not out[3]:
+            return out
+    return out
 
 
 def mesh_merge_times(d, old_lib=None, variants=None):

@@ -6,8 +6,11 @@ The CPU tests feed the fixtures of `test_torch_photo_ba.py` (a textured
 plane seen by 3 cameras; an unstructured problem with points behind the
 cameras, voxels no frame sees (n == 0) and 50 padding rows) through both
 packages, with `loss` "cauchy" (the default: plain L2 in the solvers) and
-"trunc_l2", and `channel_mix_parity` off and on. Tolerances, with their
-reasons (those of `test_torch_photo_ba.py`):
+"trunc_l2", and `channel_mix_parity` off and on; and the shapes the
+kernels' tiling makes (`_tiling_arrays`: 1, 33 and 70 frames, one, two and
+three chunks of 32, over 301 voxels, a count no CTA or warp divides, on
+40x30 images). Tolerances, with their reasons (those of
+`test_torch_photo_ba.py`):
   * energy, rtol 1e-4: sum|A|^2 - |sum A|^2/N cancels in float32, and the
     two packages sum in other orders;
   * dist, atol 1e-6 + rtol 1e-4: one b/H step of the same float32 sums;
@@ -31,6 +34,7 @@ import dataclasses
 import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,10 +45,20 @@ from gradient_sdf_tpu_torch.models import photo_ba as tba
 from gradient_sdf_tpu_torch.ops.kernels import _build
 from gradient_sdf_tpu_torch.ops.kernels import ba_terms as bt
 from gradient_sdf_tpu_torch.utils import interop
+from gradient_sdf_tpu_torch.utils import se3 as tse3
 from test_torch_photo_ba import (FIXTURES, GCFG, LOSSES, PCFG, _both,  # noqa: F401
                                  _jax_pose_system, _pcfg, _random_arrays)
 
 MIX = [False, True]
+# frames of the tiling shapes: one chunk of 32 frames, two, three
+TILING_FRAMES = [1, 33, 70]
+# the tiling shapes on the card, (frames, path): a launch of at most 8
+# frames over at most a warp a scheduler (16,896 voxels on 132 SMs) takes
+# the dense paths, any other the full-card ones; each card test checks its
+# path. PATH_VOXELS: the voxels of each path's shapes
+CARD_SHAPES = [(1, "dense"), (8, "dense"), (1, "full card"),
+               (33, "full card"), (70, "full card")]
+PATH_VOXELS = {"dense": 301, "full card": 20011}
 # the card's tolerances (module note)
 CARD_E_RTOL = 1e-5
 CARD_DIST_ATOL, CARD_DIST_RTOL, CARD_OUTLIERS = 1e-6, 1e-4, 1e-3
@@ -155,6 +169,106 @@ def test_pose_systems_reference_matches_jax(fixture, loss, mix):
     assert torch.equal(Hw, H) and torch.equal(bw, b)
 
 
+def _tiling_arrays(F, V=301, seed=21, W=40, H=30):
+    """An unstructured problem at the shapes the kernels' tiling makes:
+    F frames of W x H images, V voxels (no multiple of 32); some voxels
+    behind the cameras, some no frame sees, padding rows (vmask off) and
+    dists beyond one voxel."""
+    rng = np.random.RandomState(seed + F)
+    K = np.array([[36.0, 0.0, (W - 1) / 2], [0.0, 36.0, (H - 1) / 2],
+                  [0.0, 0.0, 1.0]], np.float32)
+    vox = np.concatenate([rng.randint(-12, 12, (V, 2)),
+                          rng.randint(30, 70, (V, 1))], 1).astype(np.int32)
+    vox[:9, 2] = -5  # behind the cameras
+    vmask = np.arange(V) < V - 23
+    vis = rng.rand(V, F) < 0.6
+    vis[40:55] = False
+    problem = dict(
+        vox=vox, grad=rng.randn(V, 3).astype(np.float32),
+        weight=rng.uniform(1, 20, V).astype(np.float32), vmask=vmask, vis=vis,
+        images=rng.rand(F, H, W, 3).astype(np.float32), K=K)
+    dist = rng.uniform(-0.03, 0.03, V).astype(np.float32)
+    R = np.stack([tse3.so3_exp(torch.from_numpy(
+        rng.randn(3).astype(np.float32) * 0.02)).numpy() for _ in range(F)])
+    state = dict(dist=dist, R=R.astype(np.float32),
+                 t=rng.uniform(-0.05, 0.05, (F, 3)).astype(np.float32))
+    return problem, state
+
+
+@pytest.mark.parametrize("mix", MIX)
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("F", TILING_FRAMES)
+def test_references_match_jax_at_tiling_shapes(F, loss, mix):
+    """Every plain version against the JAX package at 1, 33 and 70 frames
+    (module note's tolerances)."""
+    problem, state = arrays = _tiling_arrays(F)
+    (jp, js), (tp, ts) = _both(arrays)
+    pcfg = _pcfg(loss, channel_mix_parity=mix)
+    off = (~problem["vmask"] | ~problem["vis"].any(axis=1)
+           | (np.abs(state["dist"]) > GCFG.voxel_size))
+    assert off.any() and (np.abs(state["dist"]) > GCFG.voxel_size).any()
+    # energy
+    want = float(jba.energy(jp, js, GCFG))
+    got = bt.ba_voxel_sums_reference(tp, ts, GCFG, pcfg, "energy")
+    # one frame: every pair is its voxel's mean, and the energy is the
+    # float32 residue of sum|A|^2 - |sum A|^2 / N, ~1e-8 a voxel
+    assert want > 1e-3 or F == 1
+    np.testing.assert_allclose(float(got), want, rtol=1e-4, atol=1e-5)
+    # dist
+    dist = bt.ba_voxel_sums_reference(tp, ts, GCFG, pcfg, "dist")
+    np.testing.assert_allclose(dist.numpy(),
+                               np.asarray(jba.solve_dist(jp, js, GCFG, pcfg).dist),
+                               atol=1e-6, rtol=1e-4)
+    still = ~problem["vmask"] | ~problem["vis"].any(axis=1)
+    np.testing.assert_array_equal(dist.numpy()[still], state["dist"][still])
+    # n and the mean intensity
+    frame_AJ, jn, inv_n, jmean, _ = jba._pose_terms(jp, js, GCFG, pcfg)
+    n, mean = bt.ba_voxel_sums_reference(tp, ts, GCFG, pcfg, "mean")
+    np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-5)
+    assert (n.numpy()[off] == 0).all() and (n.numpy() > 0).any()
+    # the pose systems, from the JAX package's per-frame pass mapped over
+    # the frames at once
+    A, Jc, valid = jax.vmap(frame_AJ)(js.R, js.t, jp.images, jp.vis.T)
+    w = (valid & (jn > 0)).astype(jnp.float32)
+    bj = np.asarray(jnp.einsum("fv,fvc,fvce->fe", w, A - jmean, Jc,
+                               precision="highest"))
+    Hj = np.asarray(jnp.einsum("fv,fvce,fvcg->feg", w * (1.0 - inv_n), Jc, Jc,
+                               precision="highest"))
+    H, b = bt.ba_pose_systems_reference(tp, ts, GCFG, pcfg, n, mean)
+    assert H.shape == (F, 6, 6) and b.shape == (F, 6)
+    if F == 1:
+        # n = 1: (1 - 1/n) = 0 and A - mean = 0, so H and b are zero; the
+        # JAX package's are the noise of its two projections of A
+        assert not H.any() and not b.any()
+        assert np.abs(Hj).max() < 1e-3 and np.abs(bj).max() < 1e-3
+        return
+    assert np.abs(Hj).max() > 0 and np.abs(bj).max() > 0
+    np.testing.assert_allclose(H.numpy(), Hj, atol=1e-4 * np.abs(Hj).max())
+    np.testing.assert_allclose(b.numpy(), bj, atol=1e-4 * np.abs(bj).max())
+
+
+def test_bench_switches_match_the_kernel_source():
+    """`ba_bench.BA_SWITCHES` knows the source's design and each switch's
+    anchors are found exactly once as `fusion_bench.build_switched` applies
+    its edits (in order), so that a stale switch fails here and not in a
+    card run."""
+    from gradient_sdf_tpu_torch.tools import ba_bench
+
+    with open(os.path.join(_build.CSRC, "ba_terms.cu")) as f:
+        text = f.read()
+    designs = [d for d, (mark, _) in ba_bench.BA_SWITCHES.items()
+               if mark in text]
+    assert len(designs) == 1
+    for name, edits in ba_bench.BA_SWITCHES[designs[0]][1].items():
+        switched = text
+        assert edits, name
+        for old, new in edits:
+            assert switched.count(old) == 1, name
+            switched = switched.replace(old, new)
+    assert "gsdf_ba_occupancy" in text and text.count("\n// gsdf_ba_empty:") == 1
+
+
 def test_wrappers_refuse_what_they_do_not_take():
     _, (tp, ts) = _both(_random_arrays())
     with pytest.raises(ValueError, match="mode"):
@@ -211,7 +325,8 @@ def compare_on_card(problem, state, gcfg, pcfg):
                                                 n_ref, mean_ref)
     torch.cuda.synchronize()
     assert bt.launch_count == 3 and bt.pose_launch_count == 1
-    e_rel = abs(float(e) - float(e_ref)) / abs(float(e_ref))
+    # (one frame: both energies are 0, a float32 residue at most)
+    e_rel = abs(float(e) - float(e_ref)) / max(abs(float(e_ref)), 1e-30)
     miss = (d - d_ref).abs() > CARD_DIST_ATOL + CARD_DIST_RTOL * d_ref.abs()
     h_rel = ((H - H_ref).abs().amax((1, 2))
              / H_ref.abs().amax((1, 2)).clamp(min=1e-30)).max()
@@ -258,6 +373,39 @@ def test_cuda_kernels_match_plain_at_vga():
     ts = interop.state_from_numpy(arrays[1], "cuda")
     for loss in LOSSES:
         compare_on_card(tp, ts, gcfg, dataclasses.replace(pcfg, loss=loss))
+
+
+def _path_arrays(F, path):
+    """`_tiling_arrays` at F frames and the path's voxels, on the card,
+    after checking that a launch over them takes that path."""
+    V = PATH_VOXELS[path]
+    assert _build.load().gsdf_ba_dense(V, F) == (path == "dense"), (path, F)
+    problem, state = _tiling_arrays(F, V=V)
+    return (interop.problem_from_numpy(problem, "cuda"),
+            interop.state_from_numpy(state, "cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", MIX)
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("F,path", CARD_SHAPES)
+def test_cuda_kernels_match_plain_at_tiling_shapes(F, path, loss, mix):
+    """Both paths at one frame and at their longest chunk (8 frames
+    dense), the full-card paths over two and three chunks of frames (tails
+    of 1 and 6 frames)."""
+    _need_card()
+    tp, ts = _path_arrays(F, path)
+    compare_on_card(tp, ts, GCFG, _pcfg(loss, channel_mix_parity=mix))
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_take_the_most_frames():
+    """960 frames (the poses' shared memory at its largest; the pose
+    kernel's over 48 KB)."""
+    _need_card()
+    tp, ts = _path_arrays(960, "full card")
+    for loss in LOSSES:
+        compare_on_card(tp, ts, GCFG, _pcfg(loss))
 
 
 @pytest.mark.gpu
