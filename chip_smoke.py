@@ -33,7 +33,21 @@ every iteration of golden frames 1-5,
 with its one-pass launch and the mesh's step kernel, and times tracking
 through it beside the plain loop with and without the packed rows
 (`tools/track_bench.py`); phases 8-9 hold the march kernel to its plain version and
-render; phase 10 runs the base-SDF ablation and checkpoint/resume. Phase 11
+render in four modes (each render's march, window and finish launches
+counted); phase 9b holds the renderer's window kernels
+(`csrc/render_windows.cu`, `csrc/prior_windows.cu`: tiles and windows bit
+for bit in every form a render takes, and at 1920x1080 and 3840x2160, tile
+grids past a CTA's default and opt-in shared memory) and its finish
+(`csrc/ray_finish.cu`: hits exact, depth, points and normals within an
+ulp, the torch copy of its arithmetic that the CPU tests run held to it,
+d(mean depth)/dt through its backward against the plain autograd) to
+their plain versions,
+every render mode against the same render with the plain passes, and
+counts each mode's device ops, launches, `nonzero` calls and host syncs
+(none with the camera on the card), then times the three kernels beside
+their plain versions, empty launches at their grids and their bounds
+(`tools/raycast_bench.py --windows --finish`); phase 10 runs the
+base-SDF ablation and checkpoint/resume. Phase 11
 checks the host PNG and JPEG decoders built here; phase 12 the box world at
 VGA (make_synth, Scan3D at 1 cm, the gradient analysis on the card, a
 render's march bit for bit); phase 13 Scan3D through the Printed3D and
@@ -68,7 +82,8 @@ mode, `merge_touched`), its largest error
 against the plain version, its
 time beside the plain version's, the bound and (for the scatter and its
 F = 1 launch, `scatter_add_rows`) the bare `index_add_` as the library
-yardstick, on golden frame 5's real samples and, for the march, on the
+yardstick (for the stride prior's windows a 3x3 `max_pool2d`), on golden
+frame 5's real samples and, for the march, on the
 render scene's rays, for the GN kernels on golden frame 5's points (the
 loop kernel per frame from its start pose; `torch.linalg.solve_ex` on the
 6x6 as the step's yardstick); phase 2b also times an empty kernel, the
@@ -773,13 +788,17 @@ def kernel_modules():
     from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
     from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
     from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
+    from gradient_sdf_tpu_torch.ops.kernels import prior_windows as pw
+    from gradient_sdf_tpu_torch.ops.kernels import ray_finish as rf
     from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
+    from gradient_sdf_tpu_torch.ops.kernels import render_windows as rw
     from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
     from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
 
     return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm,
             "gn_residual_reduce": gt, "fuse_integrate": fi,
-            "fals_normals": fn, "track_compact": tc, "ba_voxel_sums": ba}
+            "fals_normals": fn, "track_compact": tc, "ba_voxel_sums": ba,
+            "render_windows": rw, "prior_windows": pw, "ray_finish": rf}
 
 
 def reset_launch_counts():
@@ -814,6 +833,15 @@ MESH_TRACKED = MESH_FUSION_KERNELS + ("track_compact", "gn_residual_reduce",
 # PhotoBA's decoupled alternation: `ba_voxel_sums` in modes mean, energy,
 # dist, energy and one `ba_pose_systems` (the pose step's systems)
 BA_KERNELS = ("ba_voxel_sums", "ba_pose_systems")
+# phase 9's renders (stride-4 prior, no prior, raster windows, the stride-4
+# render as depth prior): the block-raster windows for the stride prior's
+# coarse pass and the raster mode, the prior windows for the stride and
+# depth priors, the finish and the march in every render (the stride prior
+# marches twice)
+RENDER_KERNELS = ("raycast_march", "render_windows", "prior_windows",
+                  "ray_finish")
+RENDER_LAUNCHES = {"raycast_march": 5, "render_windows": 2,
+                   "prior_windows": 2, "ray_finish": 4}
 
 
 def check_ba_launches(launches, energies, what):
@@ -1458,8 +1486,9 @@ def phase_render(scene):
                                        **rb.INCREMENTAL)
     torch.cuda.synchronize()
     launches = launch_counts()
-    if launches["raycast_march"] != 5:   # two for the stride prior, one each else
-        raise AssertionError(f"five marches expected, counted {launches}")
+    if any(launches[k] != v for k, v in RENDER_LAUNCHES.items()):
+        raise AssertionError(f"render launches {RENDER_LAUNCHES} expected, "
+                             f"counted {launches}")
     normal = renders["stride4"][1]
     if not bool(torch.isfinite(normal).all()) or normal.shape != (rb.H, rb.W, 3):
         raise AssertionError("normal image malformed")
@@ -1511,15 +1540,15 @@ def phase_render(scene):
     cpu_grid = vg.VoxelGrid(*(a.cpu() for a in grid))
     cpu = host(rb.render(cpu_grid, gcfg, fcfg, R, t))
     cpu_s = time.perf_counter() - t0
-    if launch_counts()["raycast_march"] != 5:
-        raise AssertionError("the CPU render launched the CUDA kernel")
+    if any(launch_counts()[k] != v for k, v in RENDER_LAUNCHES.items()):
+        raise AssertionError("the CPU render launched a CUDA kernel")
     vs_cpu = same_render(d["stride4"], cpu, "card vs CPU render", vs)
     log(f"phase9 render_depth_normal {rb.W}x{rb.H}, 1 cm voxels: {int(hit.sum())} hits, "
         f"{int(overlap.sum())} of {int((gt > 0).sum())} analytic hits found, median "
         f"|depth err| {med * 1e3:.3f} mm (limit one voxel, {vs * 1e3:.0f} mm); vs "
         f"unwindowed (incremental: vs its prior's render): {'; '.join(notes)}; "
         f"card vs CPU (plain march, {cpu_s:.1f} s): "
-        f"{vs_cpu}; raycast_march launches {launches['raycast_march']}")
+        f"{vs_cpu}; launches {', '.join(f'{k} {launches[k]}' for k in RENDER_KERNELS)}")
     for name, kw in list(rb.RENDER_MODES.items()) + [
             ("incremental", dict(depth_prior=renders["stride4"][0], **rb.INCREMENTAL))]:
         r = rb.time_render(grid, gcfg, fcfg, R, t, **kw)
@@ -1527,6 +1556,115 @@ def phase_render(scene):
             f"5), {r['mrays_per_s']:.2f} Mrays/s, "
             f"{r['march_launches_per_render']} march launches")
     return launches
+
+
+def phase_render_kernels(scene, smi):
+    """Phase 9b: the renderer's window and finish kernels on the render
+    scene (pose 4) against their plain versions on the card
+    (`raycast_bench.windows_check_and_time`, `finish_check_and_time`):
+    tiles and windows bit for bit in every form and mode the render takes
+    (and at the active_cap escape and with the camera inside the band);
+    the finish's depth, points and camera-z depth within
+    `raycast_bench.FINISH_REL_TOL` relative, normals within
+    FINISH_NORMAL_TOL, d(mean depth)/dt within GRAD_REL_TOL of the plain
+    autograd; every render mode through the kernels against the same render
+    with the plain passes (hit masks bit for bit). Then each render mode's
+    device ops, launches, `nonzero` calls and host syncs (`render_counts`):
+    no `nonzero` in any mode, no host sync with the camera on the card, at
+    most the one upload with host arrays. Returns the `kernels` line's
+    numbers of the three kernels."""
+    import torch
+    from gradient_sdf_tpu_torch.tools import raycast_bench as rb
+
+    grid, gcfg, fcfg, _, poses = scene
+    R, t = poses[4]
+    win = rb.windows_check_and_time(grid, gcfg, fcfg, R, t)
+    fin = rb.finish_check_and_time(grid, gcfg, fcfg, R, t)
+    bad = rb.windows_finish_ok(win, fin)
+    vs_plain = rb.render_vs_plain(grid, gcfg, fcfg, R, t)
+    bad += [f"render {k} vs plain passes: {v}" for k, v in vs_plain.items()
+            if v["hit_differing"] or v["depth_rel_err"] > rb.FINISH_REL_TOL
+            or v["normal_abs_err"] > rb.FINISH_NORMAL_TOL]
+    for k in ("render_windows", "prior_windows"):
+        for what, c in win[k]["cases"].items():
+            log(f"phase9b {k} vs plain, {what}: {c['windows']} windows, "
+                f"{c['windows_differing']} differ"
+                + (f", tiles {c['tiles_differing']} of {c['tiles']} differ "
+                   f"({c['covered_tiles']} covered)" if "tiles" in c else "")
+                + f", {c['empty_windows']} empty (bit equality)")
+    for form in ("render", "raycast"):
+        r = fin[form]
+        log(f"phase9b ray_finish vs plain, {form} form: {fin['hits']} of "
+            f"{fin['rays']} rays hit, {r['hit_differing']} hits differ, depth "
+            f"max rel err {r['depth_rel_err']:.3g} ({r['depth_differing']} rays "
+            f"not bit-equal)"
+            + (f", camera-z depth {r['zdepth_rel_err']:.3g}" if "zdepth_rel_err" in r else "")
+            + (f", points {r['points_rel_err']:.3g}" if "points_rel_err" in r else "")
+            + f" (limit {rb.FINISH_REL_TOL}), normals max |err| "
+            f"{r['normal_abs_err']:.3g} (limit {rb.FINISH_NORMAL_TOL})")
+    fv = fin["finish_values"]
+    log(f"phase9b ray_finish.finish_values (the kernel's arithmetic in torch, "
+        f"which the CPU test of the backward runs) vs the kernel: "
+        f"{fv['lin_differing']} voxel indices and {fv['safe_differing']} safe "
+        f"flags differ (exact), floats max rel err {fv['rel_err']:.3g} (limit "
+        f"{rb.FINISH_REL_TOL}), {fv['values_differing']} not bit-equal")
+    log(f"phase9b render_windows keeps tile grids of up to "
+        f"{win['render_windows']['smem_tiles']} tiles in shared memory, larger "
+        f"ones in global memory")
+    log(f"phase9b d(mean depth)/dt through the finish kernel's backward "
+        f"{[float(f'{x:.6g}') for x in fin['grad_t']]} vs plain autograd "
+        f"{[float(f'{x:.6g}') for x in fin['grad_t_plain']]}: rel err "
+        f"{fin['grad_rel_err']:.3g} (limit {rb.GRAD_REL_TOL})")
+    for name, v in vs_plain.items():
+        log(f"phase9b render {name} through the kernels vs the plain passes: "
+            f"{v['hits']} hits, {v['hit_differing']} differ, depth max rel err "
+            f"{v['depth_rel_err']:.3g}, normals {v['normal_abs_err']:.3g}")
+    modes = rb.mode_kwargs(grid, gcfg, fcfg, R, t)
+    for name, kw in modes.items():
+        c = rb.render_counts(grid, gcfg, fcfg, R, t, **kw)
+        log(f"phase9b {name} render, host R, t: {c['device_ops']} device ops, "
+            f"{c['launches']} kernel launches, {c['nonzero']} nonzero, "
+            f"{c['syncs']} host syncs {c['sync_at']}; camera on the card: "
+            f"{c['device_device_ops']} device ops, {c['device_launches']} "
+            f"launches, {c['device_nonzero']} nonzero, {c['device_syncs']} "
+            f"host syncs {c['device_sync_at']}")
+        if c["nonzero"] or c["device_nonzero"] or c["device_syncs"] or c["syncs"] > 1:
+            bad.append(f"render {name}: {c}")
+    for name, (form, key) in {"render_windows": ("raster", "render_windows"),
+                              "render_windows coarse": ("stride4", "render_windows"),
+                              "prior_windows stride": ("stride", "prior_windows"),
+                              "prior_windows depth": ("depth", "prior_windows")}.items():
+        r = win[key][form]
+        log(f"phase9b {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+            f"empty launch {r['launch_floor_ms']:.4f}, bound {r['bound_ms']:.5f} "
+            f"by {r['bound_by']}, library "
+            + ("null" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} (3x3 max_pool2d)") + f" [{smi}]")
+    log(f"phase9b ray_finish (render form): kernel {fin['ms']:.4f} ms, plain "
+        f"{fin['plain_ms']:.4f}, empty launch {fin['launch_floor_ms']:.4f}, bound "
+        f"{fin['bound_ms']:.5f} by {fin['bound_by']} ({fin['bytes']} B: "
+        f"{fin['directory_sectors']} directory and {fin['field_sectors']} field "
+        f"sectors), library null [{smi}]")
+    if bad:
+        raise AssertionError("phase 9b:\n" + "\n".join(bad))
+    torch.cuda.synchronize()
+    keys = ("ms", "plain_ms", "launch_floor_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rw, pw = win["render_windows"], win["prior_windows"]
+    return {
+        "render_windows": {
+            "max_abs_err": 0.0, **{k: rw["raster"][k] for k in keys},
+            "stride4": {k: rw["stride4"][k] for k in keys}},
+        "prior_windows": {
+            "max_abs_err": 0.0, **{k: pw["stride"][k] for k in keys},
+            "depth": {k: pw["depth"][k] for k in keys}},
+        "ray_finish": {
+            "max_abs_err": max(max(fin[f]["depth_rel_err"], fin[f]["normal_abs_err"])
+                               for f in ("render", "raycast")),
+            "max_rel_err_depth": max(fin[f]["depth_rel_err"] for f in ("render", "raycast")),
+            "grad_rel_err": fin["grad_rel_err"],
+            **{k: fin[k] for k in keys}},
+    }
 
 
 def sdf_dump(prefix):
@@ -1883,7 +2021,8 @@ def phase_box(n_frames=6):
         f"{r['bound_ms'] / r['ms']:.1%} reached)")
     return {"phase 12 (box scan3d GT poses)": (gt_launches, FUSION_KERNELS),
             "phase 12 (box scan3d tracking)": (track_launches, TRACKED),
-            "phase 12 (box render)": (render_launches, ("raycast_march",))}
+            "phase 12 (box render)": (render_launches,
+                                      ("raycast_march", "ray_finish"))}
 
 
 def phase_loaders(data, n_frames):
@@ -2044,6 +2183,7 @@ def mesh_render_case(spec):
     import torch
     from gradient_sdf_tpu_torch.data import synth
     from gradient_sdf_tpu_torch.ops import raycast
+    from gradient_sdf_tpu_torch.ops.kernels import ray_finish as rf
     from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
     from gradient_sdf_tpu_torch.parallel import mesh as mesh_mod
     from gradient_sdf_tpu_torch.parallel import sharding
@@ -2062,12 +2202,14 @@ def mesh_render_case(spec):
                                          rb.W, rb.H, gcfg, fcfg, **kw)
     _sync(mesh.device)
     march0, coll0 = rm.launch_count, (mesh_mod.calls, mesh_mod.nbytes)
+    finish0 = rf.launch_count
     t0 = time.perf_counter()
     d, n, h = sharding.sharded_render_depth_normal(
         mesh, shard, synth.KINECT_K, R, t, rb.W, rb.H, gcfg, fcfg, **kw)
     _sync(mesh.device)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = torch.tensor([rm.launch_count - march0], device=mesh.device)
+    launches = torch.tensor([rm.launch_count - march0, rf.launch_count - finish0],
+                            device=mesh.device)
     coll = (mesh_mod.calls - coll0[0], mesh_mod.nbytes - coll0[1])
     mesh_mod.psum(launches, mesh, count=False)
 
@@ -2101,7 +2243,8 @@ def mesh_render_case(spec):
     except ValueError as e:
         raised = str(e)
     return {"num_active": na, "cap": cap, "ms": ms, "hits": int(h.sum()),
-            "launches": int(launches), "collectives": coll,
+            "launches": int(launches[0]), "finish_launches": int(launches[1]),
+            "collectives": coll,
             "fields_equal": bool(flags[0]), "render_equal": bool(flags[1]),
             "march_equal": bool(flags[2]), "found": int(got.found.sum()),
             "slice": mine.stop - mine.start, "cap_below_raises": raised}
@@ -2375,7 +2518,8 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
     # 15c: the sharded render
     r = out["render"]
     if not (r["fields_equal"] and r["render_equal"] and r["march_equal"]
-            and r["launches"] == MESH_RANKS and r["cap_below_raises"]
+            and r["launches"] == r["finish_launches"] == MESH_RANKS
+            and r["cap_below_raises"]
             and r["hits"] > 0.1 * rb.W * rb.H):
         raise AssertionError(f"sharded render: {r}")
     log(f"phase15c sharded render of the render scene (pose 4, {rb.W}x{rb.H}): "
@@ -2383,7 +2527,8 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
         f"the grid's rows bit for bit; depth, normal, hit = the single-card "
         f"raycast of the same rays bit for bit ({r['hits']} hits); each rank's "
         f"march of its {r['slice']} rays = the plain version bit for bit; "
-        f"{r['launches']} march launches over the ranks; a cap below num_active "
+        f"{r['launches']} march and {r['finish_launches']} finish launches over "
+        f"the ranks; a cap below num_active "
         f"raises; {r['ms']:.2f} ms per render (host clock), collectives "
         f"{r['collectives'][0]} calls, {r['collectives'][1]} bytes")
 
@@ -2449,8 +2594,9 @@ def phase_mesh(data, straight, ba_ms_7, scene, device="cuda"):
              "phase 15d (sharded BA steps)": (b["launches"], BA_KERNELS),
              "phase 15d (photoba --sharded-ba)": (out["photoba_launches"],
                                                   BA_KERNELS),
-             "phase 15 (sharded render)": ({"raycast_march": r["launches"]},
-                                           ("raycast_march",))}
+             "phase 15 (sharded render)": ({"raycast_march": r["launches"],
+                                            "ray_finish": r["finish_launches"]},
+                                           ("raycast_march", "ray_finish"))}
     return paths, {"scatter": fz["scatter_err"], "merge": 0.0,
                    "march": 0.0}, merge
 
@@ -2666,6 +2812,7 @@ def main():
     del kept
     scene, kstats["march"] = phase_march()
     render_launches = phase_render(scene)
+    rstats = phase_render_kernels(scene, smi)
     # phase 15's ranks load the render scene's grid from here
     mesh_scene = {"path": os.path.join(WORK, "scene_grid"), "gcfg": scene[1],
                   "fcfg": scene[2], "pose": scene[4][4]}
@@ -2682,7 +2829,7 @@ def main():
                  recovery_launches, FUSION_KERNELS + BA_KERNELS),
              "phase 7 (a BA alternation at the scale point)": (
                  scale_launches, BA_KERNELS),
-             "phase 9 (renders)": (render_launches, ("raycast_march",)),
+             "phase 9 (renders)": (render_launches, RENDER_KERNELS),
              "phase 10 (scan3d base-sdf)": (base_launches, TRACKED)}
     paths.update(phase_box())
     paths.update(phase_loaders(data, n_frames))
@@ -2805,6 +2952,47 @@ def main():
         "timed_on": "phase 8: the render scene's 307,200 full-resolution rays, "
                     "unwindowed, in 8x4 pixel tiles",
         **kstats["march"],
+    }, {
+        "name": "render_windows",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/render_windows.cu",
+        "replaces": "gradient_sdf_tpu/ops/raycast.py:544",
+        "launches": counted_in("render_windows")[0],
+        "launches_counted_in": counted_in("render_windows")[1],
+        "launches_note": "one a wrapper call: the raster launch (one CTA) and "
+                         "the expansion",
+        "timed_on": "phase 9b: the render scene's pose 4, every pixel's window "
+                    "(the raster mode; stride4: the stride prior's coarse "
+                    "pixels); max_abs_err: tiles and windows vs plain",
+        **rstats["render_windows"],
+    }, {
+        "name": "prior_windows",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/prior_windows.cu",
+        "replaces": "gradient_sdf_tpu/ops/raycast.py:714",
+        "also_replaces": "gradient_sdf_tpu/ops/raycast.py:803-820 (the depth "
+                         "prior's windows) and :857-880 (the stride prior's)",
+        "launches": counted_in("prior_windows")[0],
+        "launches_counted_in": counted_in("prior_windows")[1],
+        "timed_on": "phase 9b: the stride prior's windows from pose 4's "
+                    "coarse march, misses skipped (library: a 3x3 max_pool2d "
+                    "of the masked coarse image, the max half alone; depth: "
+                    "the incremental mode's windows)",
+        **rstats["prior_windows"],
+    }, {
+        "name": "ray_finish",
+        "route": "cuda",
+        "source": "gradient_sdf_tpu_torch/csrc/ray_finish.cu",
+        "replaces": "gradient_sdf_tpu/ops/raycast.py:479",
+        "also_replaces": "gradient_sdf_tpu/ops/raycast.py:505-531 (the hit "
+                         "compaction and scatter-back)",
+        "launches": counted_in("ray_finish")[0],
+        "launches_counted_in": counted_in("ray_finish")[1],
+        "timed_on": "phase 9b: pose 4's 307,200 rays marched unwindowed, the "
+                    "render's form (camera-z depth and normals); max_abs_err: "
+                    "the largest of the depth's relative and the normals' "
+                    "absolute error vs plain",
+        **rstats["ray_finish"],
     }, {
         "name": "gn_track_loop",
         "route": "cuda",

@@ -33,10 +33,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # rounding ((z + k vs) R h + t) / vs; the FALS normals' 3x3 products decide
 # which pixels pass fusion's normal gates, and the tracker's compaction
 # writes the points the GN loop rounds; PhotoBA's pass decides which image
-# cell a (voxel, frame) pair samples by flooring u = fx p0 / z + cx: all six
-# are built without fused multiply-adds, so that each and its plain PyTorch
-# version round alike (see the notes in the sources).
+# cell a (voxel, frame) pair samples by flooring u = fx p0 / z + cx; the
+# renderer's windows decide which tiles a block covers and its finish which
+# voxel a hit reads: all nine are built without fused multiply-adds, so that
+# each and its plain PyTorch version round alike (see the notes in the
+# sources).
 SOURCE_FLAGS = {"ba_terms.cu": ["-fmad=false"],
+                "render_windows.cu": ["-fmad=false"],
+                "prior_windows.cu": ["-fmad=false"],
+                "ray_finish.cu": ["-fmad=false"],
                 "raycast_march.cu": ["-fmad=false"],
                 "gn_track.cu": ["-fmad=false"],
                 "fuse_integrate.cu": ["-fmad=false"],
@@ -178,6 +183,36 @@ def _declare(lib):
     # dense instances), SMs, threads
     lib.gsdf_ba_occupancy.argtypes = [ctypes.c_longlong, vp]
     lib.gsdf_ba_occupancy.restype = ctypes.c_int
+    f32, i32 = ctypes.c_float, ctypes.c_int
+    # the renderer's windows: K, R, t, block_coords, num_active; cap,
+    # block_shape, vs, r, width, height, tile, inv_tile, max_span, stride,
+    # offset, hs, ws, clamp, s_min, s_max; tiles, lo, hi; stream
+    lib.gsdf_render_windows_f32.argtypes = (
+        [vp] * 5 + [i32, i32, f32, f32] + [i32] * 3 + [f32] + [i32] * 6
+        + [f32, f32] + [vp] * 4)
+    lib.gsdf_render_windows_f32.restype = i32
+    # the largest tile grid the raster launch keeps in shared memory
+    lib.gsdf_render_windows_smem_tiles.argtypes = []
+    lib.gsdf_render_windows_smem_tiles.restype = i32
+    # n windows, stream: empty kernels at both launches' grids
+    lib.gsdf_render_windows_empty.argtypes = [i32, vp]
+    lib.gsdf_render_windows_empty.restype = i32
+    # depth mode, val, found, inv_hnorm, width, height, stride, margin,
+    # s_min, s_max, miss_lo, miss_hi, lo, hi, stream
+    lib.gsdf_prior_windows_f32.argtypes = (
+        [i32] + [vp] * 3 + [i32] * 3 + [f32] * 5 + [vp] * 3)
+    lib.gsdf_prior_windows_f32.restype = i32
+    lib.gsdf_prior_windows_empty.argtypes = [i32, vp]
+    lib.gsdf_prior_windows_empty.restype = i32
+    # found, s_star, origins, dirs, inv_hnorm, directory, five fields (dist,
+    # weight, grad_x, grad_y, grad_z); depth, points, normal, zdepth, lin,
+    # safe, aux; n, dir_dim, block_shape; vs, inv_vs, grad_scale, dc_min;
+    # stream
+    lib.gsdf_ray_finish_f32.argtypes = (
+        [vp] * 18 + [i64, i32, i32] + [f32] * 4 + [vp])
+    lib.gsdf_ray_finish_f32.restype = i32
+    lib.gsdf_ray_finish_empty.argtypes = [i64, vp]
+    lib.gsdf_ray_finish_empty.restype = i32
 
 
 def declare_gn_track_loop(lib):

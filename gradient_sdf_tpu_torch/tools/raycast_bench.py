@@ -37,14 +37,36 @@ the five spheres of seed 3, the 16 frames of a radius-2 orbit fused at
      with `git archive`): per tree, each in a process of its own that
      imports that tree's package and fuses the scene itself, in the order
      parent, this, this, parent: the march kernel's ms (rays in their order,
-     and tiled where the tree can) and the four render modes' ms.
+     and tiled where the tree can), the four render modes' ms and their
+     launches and syncs (`render_counts`).
      `--tree DIR` is what the script passes to itself for that.
+
+Each render mode's device operations, `cudaLaunchKernel` calls, `nonzero`
+calls and host syncs (with the line of each) follow part 3, with R, t
+handed over as host arrays and as tensors on the card (`render_counts`).
+
+    python3 gradient_sdf_tpu_torch/tools/raycast_bench.py --windows --finish \
+        [--parent DIR]
+
+replaces parts 1-2 with part 6: the window kernels (`render_windows` in
+each form the render takes, at the `active_cap` escape, with the camera
+inside the band and at 1920x1080 and 3840x2160, tile grids past a CTA's
+default and opt-in shared memory; `prior_windows` in both modes and both
+miss rules) held bit for bit to their plain versions, tile grid included,
+and the finish (`ray_finish`, render and `raycast` forms, `finish_values`
+against the kernel, and d(mean depth)/dt through its backward) to its plain
+version, then each timed by CUDA events beside its plain version, an empty
+launch at its grid, its bound and (the stride prior) a 3x3 `max_pool2d` as
+the library yardstick; and each render mode through the kernels against the
+same render with the plain passes (`render_vs_plain`). Either flag alone
+runs its half. It exits 1 if a check of what ran fails.
 
 `chip_smoke.py` runs the same functions as its phases 8 and 9 and adds the
 checks against the analytic depth and the CPU.
 """
 
 import argparse
+import contextlib
 import inspect
 import json
 import os
@@ -53,6 +75,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OWN_ROOT = os.path.dirname(os.path.dirname(HERE))
@@ -362,14 +385,500 @@ def time_render(grid, gcfg, fcfg, R, t, reps=5, **kw) -> dict:
             "march_launches_per_render": (rm.launch_count - before) // reps}
 
 
+def mode_kwargs(grid, gcfg, fcfg, R, t) -> dict:
+    """{mode: render keywords} for the four modes: those of RENDER_MODES,
+    and the stride-4 render as the incremental mode's depth prior."""
+    out = dict(RENDER_MODES)
+    prev = render(grid, gcfg, fcfg, R, t)[0]
+    out["incremental"] = dict(depth_prior=prev, **INCREMENTAL)
+    return out
+
+
 def render_times(grid, gcfg, fcfg, R, t) -> dict:
     """{mode: time_render(...)} for the four modes."""
-    out = {name: time_render(grid, gcfg, fcfg, R, t, **kw)
-           for name, kw in RENDER_MODES.items()}
-    prev = render(grid, gcfg, fcfg, R, t)[0]
-    out["incremental"] = time_render(grid, gcfg, fcfg, R, t, depth_prior=prev,
-                                     **INCREMENTAL)
+    return {name: time_render(grid, gcfg, fcfg, R, t, **kw)
+            for name, kw in mode_kwargs(grid, gcfg, fcfg, R, t).items()}
+
+
+# ---------------------------------------------------------------------------
+# the passes around the march: windows and finish (`--windows`, `--finish`)
+# ---------------------------------------------------------------------------
+
+# the plain versions `render_depth_normal` takes in `plain_passes()`, by the
+# names `ops/raycast.py` calls them
+PLAIN_PASSES = {
+    "render_windows": ("render_windows", "render_windows_reference"),
+    "stride_windows": ("prior_windows", "stride_windows_reference"),
+    "depth_prior_windows": ("prior_windows", "depth_prior_windows_reference"),
+    "ray_finish": ("ray_finish", "ray_finish_reference"),
+}
+# operations of one hit's finish, counted from csrc/ray_finish.cu: the
+# point 6, voxel index 6, block and key 20 (integer), norm and scale 8,
+# centre offset 6, phi 7, G 3, denominator 5, s_ift and s_hit 5, normal 9,
+# outputs 5
+FINISH_OPS_PER_HIT = 80
+# a block's projection and cull in csrc/render_windows.cu, float32
+RASTER_OPS_PER_BLOCK = 60
+# relative depth and point error allowed between the finish kernel and its
+# plain version on the card: the plain version sums G . d and |G|^2 in an
+# order PyTorch picks, and an ulp of the denominator moves s_ift by an ulp,
+# which (m + s_ift) - s_ift rounds into s_hit: about an ulp of the depth
+# (points: relative to the largest depth, as o + s d near the origin is a
+# difference of larger numbers)
+FINISH_REL_TOL = 2e-7
+FINISH_NORMAL_TOL = 1e-6
+GRAD_REL_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def plain_passes():
+    """`render_depth_normal` with its windows and its finish in their plain
+    versions, on any device (the march stays the kernel)."""
+    import importlib
+
+    from gradient_sdf_tpu_torch.ops import raycast
+
+    saved = {name: getattr(raycast, name) for name in PLAIN_PASSES}
+    try:
+        for name, (mod, ref) in PLAIN_PASSES.items():
+            module = importlib.import_module(
+                f"gradient_sdf_tpu_torch.ops.kernels.{mod}")
+            setattr(raycast, name, getattr(module, ref))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(raycast, name, fn)
+
+
+def device_camera(R, t, device):
+    """K, R, t as float32 tensors on the card: a render that takes them
+    uploads nothing."""
+    import torch
+    from gradient_sdf_tpu_torch.data import synth
+
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in (synth.KINECT_K, R, t))
+
+
+def scaled_camera(K, width, height):
+    """K of a VGA camera scaled to a width x height image (the focal
+    lengths by the width's ratio, the principal point to the centre)."""
+    K = K.clone()
+    K[0, 0] *= width / W
+    K[1, 1] *= width / W
+    K[0, 2], K[1, 2] = 0.5 * (width - 1), 0.5 * (height - 1)
+    return K
+
+
+def render_counts(grid, gcfg, fcfg, R, t, **kw) -> dict:
+    """One render on the card (after an uncounted one) under the profiler
+    and the sync debug mode (`track_bench.count_syncs`): its device
+    operations (kernels, copies, memsets), `cudaLaunchKernel` calls,
+    `nonzero` calls, host syncs and the line of the port at each; with R,
+    t as host arrays (the upload included) and as tensors already on the
+    card (`device_` keys)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gradient_sdf_tpu_torch.tools.track_bench import count_syncs
+
+    def one(R_, t_, K_=None):
+        from gradient_sdf_tpu_torch.data import synth
+        from gradient_sdf_tpu_torch.ops import raycast
+
+        K_ = synth.KINECT_K if K_ is None else K_
+        render = lambda: raycast.render_depth_normal(  # noqa: E731
+            grid, K_, R_, t_, W, H, gcfg, fcfg, s_min=S_MIN, s_max=S_MAX, **kw)
+        render()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, syncs = count_syncs(render)
+            torch.cuda.synchronize()
+        syncs = [f"{os.path.basename(f)}:{line}" for f, line, _ in syncs]
+        ev = prof.key_averages()
+        return {"device_ops": sum(e.count for e in ev
+                                  if e.device_type == DeviceType.CUDA),
+                "launches": sum(e.count for e in ev
+                                if e.key == "cudaLaunchKernel"),
+                "nonzero": sum(e.count for e in ev
+                               if e.key.startswith("aten::nonzero")),
+                "syncs": len(syncs), "sync_at": sorted(set(syncs))}
+
+    out = one(R, t)
+    K_d, R_d, t_d = device_camera(R, t, grid.device)
+    out.update({f"device_{k}": v for k, v in one(R_d, t_d, K_d).items()})
     return out
+
+
+def _equal_bits(a, b) -> int:
+    """Entries of a and b that differ (NaN equal to NaN, -0 to +0 unequal
+    only through their value: == is exact otherwise)."""
+    import torch
+
+    return int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+
+
+def windows_bound_ms(blocks: int, n_out: int) -> tuple:
+    """(bound ms, by): bytes, 12 B a live block slot, K, R, t and the
+    count, 8 B a window written; operations, a block's projection."""
+    b = (12 * blocks + 4 * 22 + 8 * n_out) / MEM_BYTES_PER_S * 1e3
+    o = RASTER_OPS_PER_BLOCK * blocks / F32_OPS_PER_S * 1e3
+    return max(b, o), "bytes" if b >= o else "operations"
+
+
+def prior_bound_ms(bytes_in: int, n_out: int) -> tuple:
+    """(bound ms, by): the inputs once, 8 B a window written (the few
+    comparisons a window are far below)."""
+    return (bytes_in + 8 * n_out) / MEM_BYTES_PER_S * 1e3, "bytes"
+
+
+def finish_bound(found, s_star, o, d, grid, gcfg, points: bool) -> dict:
+    """The finish's least time on these rays: bytes, 33 B of ray state a
+    ray (found, s_star, origin, direction, inv_hnorm), 20 B written (depth,
+    normal, camera-z depth; 12 more with points), and per hit each distinct
+    32-byte sector of the directory and of the five fields its lookup
+    reads, once; operations, FINISH_OPS_PER_HIT a hit."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import voxel_grid as vg
+
+    hit = torch.nonzero(found).reshape(-1)
+    p = o[hit] + s_star[hit, None] * d[hit]
+    vi = vg.point_to_voxel(p, gcfg.voxel_size)
+    block, local = vg.voxel_to_block(vi, gcfg)
+    key = vg.pack_key(block, gcfg)
+    inside = key >= 0
+    slot = grid.directory[key[inside].long()]
+    lin = slot[slot >= 0].long() * gcfg.voxels_per_block + local[inside][slot >= 0]
+    dir_sectors = int(torch.unique(key[inside] // 8).numel())
+    field_sectors = int(torch.unique(lin // 8).numel())
+    n, hits = found.shape[0], hit.numel()
+    nbytes = n * (33 + 20 + (12 if points else 0)) + 32 * (dir_sectors
+                                                             + 5 * field_sectors)
+    b = nbytes / MEM_BYTES_PER_S * 1e3
+    ops = FINISH_OPS_PER_HIT * hits / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "hits": hits, "directory_sectors": dir_sectors,
+            "field_sectors": field_sectors, "bound_ms": max(b, ops),
+            "bound_by": "bytes" if b >= ops else "operations"}
+
+
+def _empty_ms(fn_name, *args):
+    """CUDA-event ms of the empty kernel(s) `fn_name` launches (the launch
+    floor at a kernel's grid)."""
+    import torch
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
+
+    lib = _build.load()
+
+    def run():
+        rc = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+
+    return median_ms(run)
+
+
+def windows_check_and_time(grid, gcfg, fcfg, R, t) -> dict:
+    """`render_windows` and `prior_windows` against their plain versions
+    on the card, bit for bit (tile grid and windows), in every form the
+    render takes and at the escapes; then each timed beside its plain
+    version, the launch floor (empty kernels at its grids), its bound and,
+    for the stride prior, the library yardstick of its max half (a 3x3
+    `max_pool2d` of the masked coarse image)."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import raycast
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.ops.kernels import prior_windows as pw
+    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
+    from gradient_sdf_tpu_torch.ops.kernels import render_windows as rw
+    from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
+
+    dev = grid.device
+    K_d, R_d, t_d = device_camera(R, t, dev)
+    stride, off = 4, 2
+    hc, wc = H // stride, W // stride
+    clamps = dict(s_min=S_MIN, s_max=S_MAX)
+    na = int(grid.num_active)
+    # a camera inside the band: blocks straddle its plane (the global range)
+    bs, vs = gcfg.block_shape, gcfg.voxel_size
+    c0 = (grid.block_coords[0].float() * bs + 0.5 * (bs - 1)) * vs
+    vga = (W, H, K_d)
+    # larger images, the VGA camera's field of view: 1920x1080's 8160 tiles
+    # (the render's own tile and span) past a CTA's default 48 KB of shared
+    # memory; 3840x2160's 32400 past an H100's opt-in 227 KB (the grid in
+    # global memory), with spans of up to 64 tiles rasterized
+    big = {w_h: (*w_h, scaled_camera(K_d, *w_h)) for w_h in ((1920, 1080),
+                                                            (3840, 2160))}
+    lib = _build.load()
+    cases = {
+        "raster (every pixel, clamped)": (dict(**clamps), t_d, vga),
+        "stride-4 coarse pixels, clamped": (dict(stride=stride, offset=off,
+                                                 **clamps), t_d, vga),
+        "block_raster_windows (every pixel)": (dict(), t_d, vga),
+        f"active_cap {na // 2} < {na} blocks (the escape)": (
+            dict(active_cap=na // 2), t_d, vga),
+        "camera inside the band (near blocks)": (dict(), c0, vga),
+        "1920x1080, every pixel": (dict(), t_d, big[1920, 1080]),
+        "3840x2160, every pixel, spans to 64 tiles": (
+            dict(max_span=64), t_d, big[3840, 2160]),
+    }
+    out = {"render_windows": {"cases": {}, "smem_tiles":
+                              lib.gsdf_render_windows_smem_tiles()},
+           "prior_windows": {"cases": {}}}
+    for what, (kw, tt, (w, h, k)) in cases.items():
+        got = rw.render_windows(grid, k, R_d, tt, w, h, gcfg, **kw)
+        want = rw.render_windows_reference(grid, k, R_d, tt, w, h, gcfg, **kw)
+        # the finished tile grid: one window a tile, unclamped
+        tkw = dict(kw, stride=16, offset=0, s_min=None, s_max=None)
+        tiles = rw.render_windows(grid, k, R_d, tt, w, h, gcfg, **tkw)
+        tiles_want = rw.render_windows_reference(grid, k, R_d, tt, w, h, gcfg, **tkw)
+        torch.cuda.synchronize()
+        lo_t = tiles_want[0]
+        out["render_windows"]["cases"][what] = {
+            "windows": want[0].numel(),
+            "windows_differing": _equal_bits(got[0], want[0])
+            + _equal_bits(got[1], want[1]),
+            "tiles_differing": _equal_bits(tiles[0], tiles_want[0])
+            + _equal_bits(tiles[1], tiles_want[1]),
+            "covered_tiles": int(torch.isfinite(lo_t).sum()),
+            "tiles": lo_t.numel(),
+            "empty_windows": int((want[0] > want[1]).sum())}
+    for form, kw in (("raster", dict(**clamps)),
+                     ("stride4", dict(stride=stride, offset=off, **clamps))):
+        n_out = H * W if form == "raster" else hc * wc
+        call = lambda kw=kw: rw.render_windows(  # noqa: E731
+            grid, K_d, R_d, t_d, W, H, gcfg, **kw)
+        bound, by = windows_bound_ms(min(na, 4096), n_out)
+        out["render_windows"][form] = {
+            "ms": median_ms(call),
+            "plain_ms": median_ms(lambda kw=kw: rw.render_windows_reference(
+                grid, K_d, R_d, t_d, W, H, gcfg, **kw), reps=5),
+            "launch_floor_ms": _empty_ms("gsdf_render_windows_empty", n_out),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+    # the stride prior on the coarse march of this pose; the depth prior on
+    # the stride-4 render
+    o, d, inv_hnorm = raycast.camera_rays(K_d, R_d, t_d, W, H, device=dev)
+
+    def coarse(a):
+        img = a.reshape((H, W) + tuple(a.shape[1:]))
+        return img[off::stride, off::stride].reshape(
+            (-1,) + tuple(a.shape[1:])).contiguous()
+
+    lo_c, hi_c = rw.render_windows(grid, K_d, R_d, t_d, W, H, gcfg, stride=stride,
+                                   offset=off, **clamps)
+    res_c = rm.raycast_march(coarse(o), coarse(d), lo_c, hi_c, grid.directory,
+                             grid.coarse_occ, grid.dist, grid.weight, gcfg, fcfg,
+                             width=wc)
+    prior = render(grid, gcfg, fcfg, R_d, t_d)[0].reshape(-1)
+    T = fcfg.trunc_voxels * vs
+    margins = {"default": T + 2 * vs, "4 voxels": 4 * vs}
+    sw = dict(hc=hc, wc=wc, stride=stride, margin=margins["default"], **clamps)
+    dw = dict(margin=margins["4 voxels"], **clamps)
+    stride_pair = (pw.stride_windows, pw.stride_windows_reference,
+                   (res_c.s_mid, res_c.found))
+    pcases = {
+        "stride prior, misses skipped": (*stride_pair, dict(sw, skip=True)),
+        "stride prior, misses marched": (*stride_pair, dict(sw, skip=False)),
+        "depth prior, holes skipped, 4-voxel margin": (
+            pw.depth_prior_windows, pw.depth_prior_windows_reference,
+            (prior, inv_hnorm), dict(dw, skip=True)),
+        "depth prior, holes marched, default margin": (
+            pw.depth_prior_windows, pw.depth_prior_windows_reference,
+            (prior, inv_hnorm), dict(dw, margin=margins["default"], skip=False)),
+    }
+    for what, (kern, ref, args, kw) in pcases.items():
+        got, want = kern(*args, **kw), ref(*args, **kw)
+        torch.cuda.synchronize()
+        out["prior_windows"]["cases"][what] = {
+            "windows": want[0].numel(),
+            "windows_differing": _equal_bits(got[0], want[0])
+            + _equal_bits(got[1], want[1]),
+            "empty_windows": int((want[0] > want[1]).sum())}
+    # the library yardstick of the stride prior's max half
+    masked = torch.where(res_c.found, res_c.s_mid,
+                         -float("inf")).reshape(1, 1, hc, wc)
+    timed = {"stride": pcases["stride prior, misses skipped"],
+             "depth": pcases["depth prior, holes skipped, 4-voxel margin"]}
+    for form, (kern, ref, args, kw) in timed.items():
+        bytes_in = 5 * hc * wc if form == "stride" else 8 * H * W
+        bound, by = prior_bound_ms(bytes_in, H * W)
+        out["prior_windows"][form] = {
+            "ms": median_ms(lambda: kern(*args, **kw)),
+            "plain_ms": median_ms(lambda: ref(*args, **kw), reps=5),
+            "launch_floor_ms": _empty_ms("gsdf_prior_windows_empty", H * W),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": (median_ms(lambda: torch.nn.functional.max_pool2d(
+                masked, 3, 1, 1)) if form == "stride" else None)}
+    out["coarse_hits"] = int(res_c.found.sum())
+    return out
+
+
+def finish_check_and_time(grid, gcfg, fcfg, R, t) -> dict:
+    """`ray_finish` against its plain version on the card on every ray of
+    this pose, marched unwindowed: in the render's form (camera-z depth, no
+    points) and in `raycast`'s (points): depth, points and camera-z depth
+    relative, normals absolute; d(mean depth)/dt of a render without prior
+    through the kernel's backward against the plain autograd; then timed
+    beside its plain version, the launch floor and its bound."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import raycast
+    from gradient_sdf_tpu_torch.ops.kernels import ray_finish as rf
+    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
+    from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
+
+    dev = grid.device
+    K_d, R_d, t_d = device_camera(R, t, dev)
+    o, d, inv_hnorm = raycast.camera_rays(K_d, R_d, t_d, W, H, device=dev)
+    o = o.contiguous()
+    n = o.shape[0]
+    res = rm.raycast_march(o, d, torch.full((n,), S_MIN, device=dev),
+                           torch.full((n,), S_MAX, device=dev), grid.directory,
+                           grid.coarse_occ, grid.dist, grid.weight, gcfg, fcfg,
+                           width=W)
+    args = (res.found, res.s_star, o, d)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+    def rel_depth(a, b, depth):
+        # a point o + s d near the origin is a difference of larger numbers:
+        # an ulp of s moves it by an ulp of s, so it is held relative to the
+        # largest depth
+        return float((a - b).abs().max() / depth.abs().max())
+
+    out = {"rays": n, "hits": int(res.found.sum())}
+    for form, ih, pts in (("render", inv_hnorm, False), ("raycast", None, True)):
+        got = rf.ray_finish(*args, ih, grid, gcfg, fcfg, points=pts)
+        want = rf.ray_finish_reference(*args, ih, grid, gcfg, fcfg, points=pts)
+        torch.cuda.synchronize()
+        row = {"depth_rel_err": rel(got.depth, want.depth),
+               "depth_differing": _equal_bits(got.depth, want.depth),
+               "normal_abs_err": float((got.normal - want.normal).abs().max()),
+               "hit_differing": int(((got.depth != 0) != (want.depth != 0)).sum())}
+        if ih is not None:
+            row["zdepth_rel_err"] = rel(got.zdepth, want.zdepth)
+        if pts:
+            row["points_rel_err"] = rel_depth(got.points, want.points, want.depth)
+        out[form] = row
+
+    # `finish_values` (the kernel's arithmetic in torch, which the CPU tests
+    # of the backward run) against the kernel, outputs and saved state
+    out["finish_values"] = finish_values_vs_kernel(args, inv_hnorm, grid, gcfg,
+                                                   fcfg)
+
+    # d(mean depth)/dt through the kernel's backward vs the plain autograd
+    def grad_t(plain):
+        tt = t_d.clone().requires_grad_(True)
+        ctx = plain_passes() if plain else contextlib.nullcontext()
+        with ctx:
+            depth, _, hit = raycast.render_depth_normal(
+                grid, K_d, R_d, tt, W, H, gcfg, fcfg, s_min=S_MIN, s_max=S_MAX,
+                prior_stride=0)
+        (depth.sum() / hit.sum()).backward()
+        return tt.grad
+
+    g_k, g_p = grad_t(False), grad_t(True)
+    out["grad_t"] = g_k.tolist()
+    out["grad_t_plain"] = g_p.tolist()
+    out["grad_rel_err"] = float((g_k - g_p).abs().max() / g_p.abs().max())
+
+    bound = finish_bound(res.found, res.s_star, o, d, grid, gcfg, False)
+    call = lambda: rf.ray_finish(*args, inv_hnorm, grid, gcfg, fcfg,  # noqa: E731
+                                 points=False)
+    out.update(bound)
+    out.update({
+        "ms": median_ms(call),
+        "plain_ms": median_ms(lambda: rf.ray_finish_reference(
+            *args, inv_hnorm, grid, gcfg, fcfg, points=False), reps=5),
+        "launch_floor_ms": _empty_ms("gsdf_ray_finish_empty", n),
+        "library_ms": None})
+    return out
+
+
+def finish_values_vs_kernel(args, inv_hnorm, grid, gcfg, fcfg) -> dict:
+    """`ray_finish.finish_values` against the kernel's launch with the
+    backward's state, on the same rays: the voxel index and the safe flag
+    (entries differing), and every float output and state column (depth,
+    points, normal, camera-z depth, g, s, cmp, dc) as its largest
+    |difference| over its largest |entry| (`rel_err`, against
+    FINISH_REL_TOL) and as entries not bit-equal."""
+    import torch
+    from gradient_sdf_tpu_torch.ops.kernels import ray_finish as rf
+
+    kw = dict(points=True, state=True)
+    got, (lin, safe, aux) = rf._launch(*args, inv_hnorm, grid, gcfg, fcfg, **kw)
+    want, (lin_w, safe_w, aux_w) = rf.finish_values(*args, inv_hnorm, grid, gcfg,
+                                                    fcfg, **kw)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) + [(aux[:, k], aux_w[:, k]) for k in range(8)]
+    rel, differing = 0.0, 0
+    for a, b in pairs:
+        scale = float(b.abs().max())
+        if scale > 0:
+            rel = max(rel, float((a - b).abs().max()) / scale)
+        differing += _equal_bits(a, b)
+    return {"lin_differing": int((lin != lin_w).sum()),
+            "safe_differing": int((safe != safe_w).sum()),
+            "rel_err": rel, "values_differing": differing}
+
+
+def windows_finish_ok(win: Optional[dict], fin: Optional[dict]) -> list:
+    """The failures of the checks above, of whichever ran (None: not run):
+    windows and tiles bit for bit, the finish within FINISH_REL_TOL (depth,
+    points, camera-z depth), FINISH_NORMAL_TOL (normals), no hit differing,
+    the gradient within GRAD_REL_TOL."""
+    bad = []
+    for k in ("render_windows", "prior_windows") if win else ():
+        for what, c in win[k]["cases"].items():
+            if c["windows_differing"] or c.get("tiles_differing", 0):
+                bad.append(f"{k} {what}: {c}")
+    if fin is None:
+        return bad
+    for form in ("render", "raycast"):
+        r = fin[form]
+        errs = [r["depth_rel_err"], r.get("zdepth_rel_err", 0.0),
+                r.get("points_rel_err", 0.0)]
+        if (max(errs) > FINISH_REL_TOL or r["normal_abs_err"] > FINISH_NORMAL_TOL
+                or r["hit_differing"]):
+            bad.append(f"ray_finish {form} form: {r}")
+    fv = fin["finish_values"]
+    if fv["lin_differing"] or fv["safe_differing"] or not fv["rel_err"] <= FINISH_REL_TOL:
+        bad.append(f"ray_finish.finish_values vs the kernel: {fv}")
+    if not fin["grad_rel_err"] <= GRAD_REL_TOL:
+        bad.append(f"ray_finish d(mean depth)/dt: {fin['grad_t']} vs plain "
+                   f"{fin['grad_t_plain']}, rel err {fin['grad_rel_err']}")
+    return bad
+
+
+def render_vs_plain(grid, gcfg, fcfg, R, t) -> dict:
+    """Each render mode through the kernels against the same render with
+    the windows and the finish in their plain versions (the march kernel in
+    both): hit masks bit for bit, depth within FINISH_REL_TOL relative,
+    normals within FINISH_NORMAL_TOL."""
+    import torch
+
+    def renders():
+        out = {name: render(grid, gcfg, fcfg, R, t, **kw)
+               for name, kw in RENDER_MODES.items()}
+        out["incremental"] = render(grid, gcfg, fcfg, R, t,
+                                    depth_prior=out["stride4"][0], **INCREMENTAL)
+        return out
+
+    got = renders()
+    with plain_passes():
+        want = renders()
+    torch.cuda.synchronize()
+    res = {}
+    for name, (dg, ng, hg) in got.items():
+        dw, nw, hw = want[name]
+        res[name] = {
+            "hits": int(hw.sum()), "hit_differing": int((hg != hw).sum()),
+            "depth_rel_err": float(((dg - dw).abs()
+                                    / dw.abs().clamp(min=1e-30)).max()),
+            "normal_abs_err": float((ng - nw).abs().max())}
+    return res
 
 
 def tree_times() -> dict:
@@ -400,13 +909,16 @@ def tree_times() -> dict:
             row["ms_tiled"] = median_ms(
                 lambda: rm.raycast_march(*args, gcfg, fcfg, width=W))
         march["windowed" if windowed else "unwindowed"] = row
+    modes = mode_kwargs(grid, gcfg, fcfg, R, t)
     return {"march": march,
             # a tree without THREADS has the earlier 256-thread kernel
             "code": [c for c in march_code(_build.lib_path, _build.build_log,
                                            getattr(rm, "THREADS", 256))
                      if not c["stats"]],
             "render_ms": {k: v["ms"] for k, v in
-                          render_times(grid, gcfg, fcfg, R, t).items()}}
+                          render_times(grid, gcfg, fcfg, R, t).items()},
+            "render_counts": {k: render_counts(grid, gcfg, fcfg, R, t, **kw)
+                              for k, kw in modes.items()}}
 
 
 def run_tree(root):
@@ -427,6 +939,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout of an earlier commit to compare")
     ap.add_argument("--tree", help="measure the package in DIR alone (part 5)")
+    ap.add_argument("--windows", action="store_true",
+                    help="the window kernels vs plain, timed (part 6)")
+    ap.add_argument("--finish", action="store_true",
+                    help="the finish kernel vs plain, timed (part 6)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree or OWN_ROOT))
     import torch
@@ -448,24 +964,43 @@ def main():
     grid, gcfg, fcfg, _, poses = render_scene(dev)
     R, t = poses[4]
     print(json.dumps({"scene": {"blocks": int(grid.num_active), "rays": W * H}}))
-    march = {}
-    for windowed in (False, True):
-        for width in (None, W):
-            r = march_check_and_time(grid, gcfg, fcfg, R, t, windowed, width,
-                                     plain=width is None)
-            march[windowed, width] = r
-            print(json.dumps({"march": r}), flush=True)
-    args_u = march_args(grid, gcfg, R, t, False)
-    mhz = sm_clock_while(lambda: rm.raycast_march(*args_u, gcfg, fcfg, width=W))
-    slots = {f"{'windowed' if w else 'unwindowed'}_{'tiled' if wd else 'flat'}":
-             issue_slots_per_warp_probe(r["ms"], r["warp_probes"], mhz[1] * 1e6)
-             for (w, wd), r in march.items()}
-    print(json.dumps({"code": march_code(_build.lib_path, _build.build_log,
-                                         rm.THREADS),
-                      "sm_clock_mhz_min_median_max": mhz,
-                      "issue_slots_per_warp_probe": slots}), flush=True)
+    failures = []
+    if args.windows or args.finish:
+        win = windows_check_and_time(grid, gcfg, fcfg, R, t) if args.windows else None
+        fin = finish_check_and_time(grid, gcfg, fcfg, R, t) if args.finish else None
+        if win:
+            print(json.dumps({"windows": win}), flush=True)
+        if fin:
+            print(json.dumps({"finish": fin}), flush=True)
+        failures += windows_finish_ok(win, fin)
+        vs_plain = render_vs_plain(grid, gcfg, fcfg, R, t)
+        print(json.dumps({"render_vs_plain_passes": vs_plain}), flush=True)
+        failures += [f"{k}: {v}" for k, v in vs_plain.items()
+                     if v["hit_differing"] or v["depth_rel_err"] > FINISH_REL_TOL
+                     or v["normal_abs_err"] > FINISH_NORMAL_TOL]
+    else:
+        march = {}
+        for windowed in (False, True):
+            for width in (None, W):
+                r = march_check_and_time(grid, gcfg, fcfg, R, t, windowed, width,
+                                         plain=width is None)
+                march[windowed, width] = r
+                print(json.dumps({"march": r}), flush=True)
+        args_u = march_args(grid, gcfg, R, t, False)
+        mhz = sm_clock_while(lambda: rm.raycast_march(*args_u, gcfg, fcfg, width=W))
+        slots = {f"{'windowed' if w else 'unwindowed'}_{'tiled' if wd else 'flat'}":
+                 issue_slots_per_warp_probe(r["ms"], r["warp_probes"], mhz[1] * 1e6)
+                 for (w, wd), r in march.items()}
+        print(json.dumps({"code": march_code(_build.lib_path, _build.build_log,
+                                             rm.THREADS),
+                          "sm_clock_mhz_min_median_max": mhz,
+                          "issue_slots_per_warp_probe": slots}), flush=True)
     for name, r in render_times(grid, gcfg, fcfg, R, t).items():
         print(json.dumps({"render": name, **r}), flush=True)
+    for name, kw in mode_kwargs(grid, gcfg, fcfg, R, t).items():
+        print(json.dumps({"render_counts": name,
+                          **render_counts(grid, gcfg, fcfg, R, t, **kw)}),
+              flush=True)
     from gradient_sdf_tpu_torch.tools.ba_bench import profile_call
 
     for name in ("stride4", "no_prior"):
@@ -482,6 +1017,10 @@ def main():
                            ("this", OWN_ROOT), ("parent", args.parent)):
             print(json.dumps({"tree": name, **run_tree(root)}), flush=True)
     print(smi_line(), flush=True)
+    if failures:
+        print("raycast_bench: checks failed:\n" + "\n".join(failures),
+              file=sys.stderr)
+        return 1
     return 0
 
 
