@@ -36,8 +36,8 @@ through it beside the plain loop with and without the packed rows
 render in four modes (each render's march, window and finish launches
 counted); phase 9b holds the renderer's window kernels
 (`csrc/render_windows.cu`, `csrc/prior_windows.cu`: tiles and windows bit
-for bit in every form a render takes, and at 1920x1080 and 3840x2160, tile
-grids past a CTA's default and opt-in shared memory) and its finish
+for bit in every form a render takes, at 1920x1080 and 3840x2160 and at
+4096 synthetic active blocks) and its finish
 (`csrc/ray_finish.cu`: hits exact, depth, points and normals within an
 ulp, the torch copy of its arithmetic that the CPU tests run held to it,
 d(mean depth)/dt through its backward against the plain autograd) to
@@ -1608,9 +1608,10 @@ def phase_render_kernels(scene, smi):
         f"{fv['lin_differing']} voxel indices and {fv['safe_differing']} safe "
         f"flags differ (exact), floats max rel err {fv['rel_err']:.3g} (limit "
         f"{rb.FINISH_REL_TOL}), {fv['values_differing']} not bit-equal")
-    log(f"phase9b render_windows keeps tile grids of up to "
-        f"{win['render_windows']['smem_tiles']} tiles in shared memory, larger "
-        f"ones in global memory")
+    for size, shape in win["render_windows"]["launch"].items():
+        log(f"phase9b render_windows launch at {size}: {shape['ctas']} CTAs of "
+            f"{shape['threads']}, patches of {shape['patch_tiles'][0]} x "
+            f"{shape['patch_tiles'][1]} tiles")
     log(f"phase9b d(mean depth)/dt through the finish kernel's backward "
         f"{[float(f'{x:.6g}') for x in fin['grad_t']]} vs plain autograd "
         f"{[float(f'{x:.6g}') for x in fin['grad_t_plain']]}: rel err "
@@ -1640,6 +1641,14 @@ def phase_render_kernels(scene, smi):
             f"by {r['bound_by']}, library "
             + ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} (3x3 max_pool2d)") + f" [{smi}]")
+    r = win["render_windows"][f"raster_{rb.SWEEP_BLOCKS}_blocks"]
+    log(f"phase9b render_windows at {rb.SWEEP_BLOCKS} synthetic active blocks, "
+        f"every pixel: kernel {r['ms']:.4f} ms, empty launch "
+        f"{r['launch_floor_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+        f"{r['bound_by']} [{smi}]")
+    for what, r in win["render_windows"]["sweep"].items():
+        log(f"phase9b render_windows sweep, {what}: {r['ms']:.4f} ms, empty "
+            f"launch {r['launch_floor_ms']:.4f}, bound {r['bound_ms']:.5f} [{smi}]")
     log(f"phase9b ray_finish (render form): kernel {fin['ms']:.4f} ms, plain "
         f"{fin['plain_ms']:.4f}, empty launch {fin['launch_floor_ms']:.4f}, bound "
         f"{fin['bound_ms']:.5f} by {fin['bound_by']} ({fin['bytes']} B: "
@@ -1654,7 +1663,8 @@ def phase_render_kernels(scene, smi):
     return {
         "render_windows": {
             "max_abs_err": 0.0, **{k: rw["raster"][k] for k in keys},
-            "stride4": {k: rw["stride4"][k] for k in keys}},
+            "stride4": {k: rw["stride4"][k] for k in keys},
+            f"blocks_{rb.SWEEP_BLOCKS}": rw[f"raster_{rb.SWEEP_BLOCKS}_blocks"]},
         "prior_windows": {
             "max_abs_err": 0.0, **{k: pw["stride"][k] for k in keys},
             "depth": {k: pw["depth"][k] for k in keys}},
@@ -2959,11 +2969,12 @@ def main():
         "replaces": "gradient_sdf_tpu/ops/raycast.py:544",
         "launches": counted_in("render_windows")[0],
         "launches_counted_in": counted_in("render_windows")[1],
-        "launches_note": "one a wrapper call: the raster launch (one CTA) and "
-                         "the expansion",
+        "launches_note": "one CUDA launch a wrapper call (a CTA a patch of "
+                         "the tile grid)",
         "timed_on": "phase 9b: the render scene's pose 4, every pixel's window "
                     "(the raster mode; stride4: the stride prior's coarse "
-                    "pixels); max_abs_err: tiles and windows vs plain",
+                    "pixels; blocks_4096: 4096 synthetic active blocks); "
+                    "max_abs_err: tiles and windows vs plain",
         **rstats["render_windows"],
     }, {
         "name": "prior_windows",

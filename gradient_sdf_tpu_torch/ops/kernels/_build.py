@@ -186,23 +186,25 @@ def _declare(lib):
     f32, i32 = ctypes.c_float, ctypes.c_int
     # the renderer's windows: K, R, t, block_coords, num_active; cap,
     # block_shape, vs, r, width, height, tile, inv_tile, max_span, stride,
-    # offset, hs, ws, clamp, s_min, s_max; tiles, lo, hi; stream
+    # offset, hs, ws, clamp, s_min, s_max; lo, hi; stream
     lib.gsdf_render_windows_f32.argtypes = (
         [vp] * 5 + [i32, i32, f32, f32] + [i32] * 3 + [f32] + [i32] * 6
-        + [f32, f32] + [vp] * 4)
+        + [f32, f32] + [vp] * 3)
     lib.gsdf_render_windows_f32.restype = i32
-    # the largest tile grid the raster launch keeps in shared memory
-    lib.gsdf_render_windows_smem_tiles.argtypes = []
-    lib.gsdf_render_windows_smem_tiles.restype = i32
-    # n windows, stream: empty kernels at both launches' grids
-    lib.gsdf_render_windows_empty.argtypes = [i32, vp]
+    # width, height, tile, int[4] out: patch tiles PX, PY, CTAs, threads
+    lib.gsdf_render_windows_shape.argtypes = [i32] * 3 + [vp]
+    lib.gsdf_render_windows_shape.restype = i32
+    # width, height, tile, stream: an empty kernel at the launch's grid
+    lib.gsdf_render_windows_empty.argtypes = [i32] * 3 + [vp]
     lib.gsdf_render_windows_empty.restype = i32
     # depth mode, val, found, inv_hnorm, width, height, stride, margin,
     # s_min, s_max, miss_lo, miss_hi, lo, hi, stream
     lib.gsdf_prior_windows_f32.argtypes = (
         [i32] + [vp] * 3 + [i32] * 3 + [f32] * 5 + [vp] * 3)
     lib.gsdf_prior_windows_f32.restype = i32
-    lib.gsdf_prior_windows_empty.argtypes = [i32, vp]
+    # depth mode, width, height, stride, stream: an empty kernel at the
+    # launch's grid
+    lib.gsdf_prior_windows_empty.argtypes = [i32] * 4 + [vp]
     lib.gsdf_prior_windows_empty.restype = i32
     # found, s_star, origins, dirs, inv_hnorm, directory, five fields (dist,
     # weight, grad_x, grad_y, grad_z); depth, points, normal, zdepth, lin,

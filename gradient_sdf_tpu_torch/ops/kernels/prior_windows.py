@@ -16,11 +16,14 @@ s_max] as `raycast` clamps its windows, so it goes to the march as it is.
 
 The JAX package leaves this to XLA. In eager PyTorch it is ~40 small
 launches (`stride_windows_reference`, `depth_prior_windows_reference`, the
-plain versions), so on the card both are one launch of the hand-written
-kernel of `csrc/prior_windows.cu` (one thread a full-resolution pixel; the
-stride and depth modes of one kernel), equal to the plain versions bit for
-bit. On a CUDA tensor the wrappers launch the kernel or raise; on a CPU
-tensor they take the plain versions.
+plain versions), so on the card each is one launch of a hand-written
+kernel of `csrc/prior_windows.cu`, equal to the plain versions bit for
+bit. Stride mode: a CTA stages 32 x 8 coarse cells and their halo in
+shared memory, forms each cell's window once and writes its pixels as
+16-byte rows of four. Depth mode: a thread four pixels, 16-byte loads and
+stores. Both are bound by the 8 B a pixel they write; at VGA an empty
+launch at their grid is about half of their time. On a CUDA tensor the wrappers launch the kernel
+or raise; on a CPU tensor they take the plain versions.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ import torch
 # wrapper calls (either mode) that launched the kernel since the last
 # reset_launch_count(); the CPU path does not count
 launch_count = 0
-THREADS = 256
 
 
 def reset_launch_count():

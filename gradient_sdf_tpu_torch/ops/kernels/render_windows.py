@@ -12,13 +12,17 @@ tile no block covers get [inf, -inf], an empty window (an exact miss).
 
 The JAX package leaves this to XLA. In eager PyTorch it is ~100 small
 launches (`render_windows_reference`, the plain version), so on the card
-it is the hand-written kernel of `csrc/render_windows.cu`: one CTA
-rasterizes every block into the tile grid in shared memory (the scattered
-values are non-negative floats, so integer atomics on their bits are exact
-and the tiles equal the plain version's bit for bit), then one thread an
-output window expands the tiles. A tile grid larger than a CTA's shared
-memory (past ~29k tiles on an H100, e.g. 3840x2160 at 16 px) stays in
-global memory, the same atomics and launches. `num_active` is read on the device, so a
+it is one launch of the hand-written kernel of `csrc/render_windows.cu`:
+the tile grid is cut into patches (4 x 4 tiles at VGA, larger for larger
+images, so the grid stays at most one CTA an SM and a patch fits in shared
+memory at any image size), and each CTA projects every active block,
+min/maxes its range into the tiles of its own patch where the block's span
+meets it (the scattered values are non-negative floats, so integer atomics
+on their bits are exact and the tiles equal the plain version's bit for
+bit), reduces the global range itself and writes its patch's windows with
+16-byte stores. Its bound is the 8 B a window it writes and the 12 B a
+block slot it reads; at VGA the launch and the projection, which every CTA
+repeats, take most of its time. `num_active` is read on the device, so a
 call makes no host sync. The output is every pixel's window, or only the
 strided pixels (`stride`, `offset`) that a coarse pass marches, optionally
 clamped to [s_min, s_max] as `raycast` clamps them. On a CUDA grid the
@@ -37,12 +41,9 @@ import torch
 from ...config import GridConfig
 from .. import voxel_grid as vg
 
-# wrapper calls that launched the kernel pair since the last
-# reset_launch_count() (one a call: the raster launch and the expansion);
-# the CPU path does not count
+# wrapper calls that launched the kernel since the last
+# reset_launch_count() (one launch a call); the CPU path does not count
 launch_count = 0
-RASTER_THREADS = 1024
-EXPAND_THREADS = 256
 
 
 def reset_launch_count():
@@ -204,8 +205,8 @@ def render_windows(grid: vg.VoxelGrid, K, R, t, width: int, height: int,
     intrinsics K (arrays or tensors; moved to the grid's device), each
     clamped to [s_min, s_max] where given. Every pixel's window for stride
     1 (the default); `stride=tile`, `offset=0` and no clamps give the
-    finished tile grid itself (pixel k tile lies in tile k). On CUDA both
-    launches go on the current stream without synchronizing."""
+    finished tile grid itself (pixel k tile lies in tile k). On CUDA the
+    one launch goes on the current stream without synchronizing."""
     dev = grid.device
     if dev.type == "cpu":
         return render_windows_reference(
@@ -216,10 +217,10 @@ def render_windows(grid: vg.VoxelGrid, K, R, t, width: int, height: int,
         raise RuntimeError(f"render_windows: no kernel for {dev}")
     from . import _build
 
-    nt = _check(grid, width, height, tile, stride, offset)
-    if 2 * nt >= 2**31:
-        raise ValueError(f"{nt} tiles of {tile} px exceed the kernel's "
-                         f"int32 index")
+    _check(grid, width, height, tile, stride, offset)
+    if max(width, height) + tile >= 2**31:
+        raise ValueError(f"image {width}x{height}, tile {tile}: past the "
+                         f"kernel's int32 pixel index")
     if grid.num_blocks * 3 >= 2**31:
         raise ValueError(f"{grid.num_blocks} block slots exceed the kernel's "
                          f"int32 index")
@@ -232,7 +233,8 @@ def render_windows(grid: vg.VoxelGrid, K, R, t, width: int, height: int,
     num_active = grid.num_active.to(torch.int32)
     hs, ws = out_shape(width, height, stride, offset)
     f32 = dict(dtype=torch.float32, device=dev)
-    tiles = torch.empty(2 * nt, **f32)
+    if hs * ws >= 2**31:
+        raise ValueError(f"{hs * ws} windows exceed the kernel's int32 index")
     lo = torch.empty(hs * ws, **f32)
     hi = torch.empty(hs * ws, **f32)
     vs, bs = gcfg.voxel_size, gcfg.block_shape
@@ -247,7 +249,7 @@ def render_windows(grid: vg.VoxelGrid, K, R, t, width: int, height: int,
             offset, hs, ws, int(s_min is not None or s_max is not None),
             -math.inf if s_min is None else s_min,
             math.inf if s_max is None else s_max,
-            tiles.data_ptr(), lo.data_ptr(), hi.data_ptr(), stream)
+            lo.data_ptr(), hi.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"render_windows kernel launch failed: CUDA error {rc}")
     global launch_count

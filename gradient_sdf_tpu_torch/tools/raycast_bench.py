@@ -50,16 +50,24 @@ handed over as host arrays and as tensors on the card (`render_counts`).
 
 replaces parts 1-2 with part 6: the window kernels (`render_windows` in
 each form the render takes, at the `active_cap` escape, with the camera
-inside the band and at 1920x1080 and 3840x2160, tile grids past a CTA's
-default and opt-in shared memory; `prior_windows` in both modes and both
-miss rules) held bit for bit to their plain versions, tile grid included,
-and the finish (`ray_finish`, render and `raycast` forms, `finish_values`
-against the kernel, and d(mean depth)/dt through its backward) to its plain
-version, then each timed by CUDA events beside its plain version, an empty
-launch at its grid, its bound and (the stride prior) a 3x3 `max_pool2d` as
-the library yardstick; and each render mode through the kernels against the
+inside the band, at 1920x1080 and 3840x2160 and at 4096 synthetic active
+blocks; `prior_windows` in both modes and both miss rules) held bit for
+bit to their plain versions, tile grid included, and the finish
+(`ray_finish`, render and `raycast` forms, `finish_values` against the
+kernel, and d(mean depth)/dt through its backward) to its plain version,
+then each timed by CUDA events beside its plain version, an empty launch
+at its grid, its bound and (the stride prior) a 3x3 `max_pool2d` as the
+library yardstick; `render_windows` over the scene's and 4096 active
+blocks at VGA, 1920x1080 and 3840x2160 (`windows_sweep`); the two window
+kernels taken apart by one-switch builds (`windows_split`:
+RENDER_WINDOWS_SWITCHES, PRIOR_WINDOWS_SWITCHES, one `nvcc` a build,
+started together); and each render mode through the kernels against the
 same render with the plain passes (`render_vs_plain`). Either flag alone
-runs its half. It exits 1 if a check of what ran fails.
+runs its half. It exits 1 if a check of what ran fails. With `--windows
+--parent DIR` the turns (parent, this, this, parent; a process each)
+time each tree's window kernels over the same sweep, both priors, and the
+render modes' ms, launches and syncs (`tree_window_times`) instead of
+part 5.
 
 `chip_smoke.py` runs the same functions as its phases 8 and 9 and adds the
 checks against the analytic depth and the CPU.
@@ -520,8 +528,10 @@ def _equal_bits(a, b) -> int:
 
 
 def windows_bound_ms(blocks: int, n_out: int) -> tuple:
-    """(bound ms, by): bytes, 12 B a live block slot, K, R, t and the
-    count, 8 B a window written; operations, a block's projection."""
+    """(bound ms, by) of one `render_windows` call: bytes, 12 B a live
+    block slot, K, R, t and the count, 8 B a window written; operations, a
+    block's projection once (the kernel repeats it in every CTA; the bound
+    counts the function's work)."""
     b = (12 * blocks + 4 * 22 + 8 * n_out) / MEM_BYTES_PER_S * 1e3
     o = RASTER_OPS_PER_BLOCK * blocks / F32_OPS_PER_S * 1e3
     return max(b, o), "bytes" if b >= o else "operations"
@@ -579,60 +589,236 @@ def _empty_ms(fn_name, *args):
     return median_ms(run)
 
 
+def render_windows_floor_ms(width: int, height: int, n_out: int,
+                            tile: int = 16) -> float:
+    """The launch floor of a `render_windows` call of the imported tree:
+    one empty kernel at the patch grid of a width x height image (a tree
+    with `gsdf_render_windows_shape`), else the two empty kernels of the
+    earlier two-launch design (its one-CTA raster launch and its expansion
+    of n_out windows)."""
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+
+    if hasattr(_build.load(), "gsdf_render_windows_shape"):
+        return _empty_ms("gsdf_render_windows_empty", width, height, tile)
+    return _empty_ms("gsdf_render_windows_empty", n_out)
+
+
+def prior_windows_floor_ms(depth: bool, width: int, height: int,
+                           stride: int) -> float:
+    """The launch floor of a `prior_windows` call of the imported tree: one
+    empty kernel at its grid (the earlier kernel's: a thread a pixel)."""
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+
+    fn = _build.load().gsdf_prior_windows_empty
+    if len(fn.argtypes) == 2:
+        return _empty_ms("gsdf_prior_windows_empty", width * height)
+    return _empty_ms("gsdf_prior_windows_empty", int(depth), width, height,
+                     stride)
+
+
+def render_windows_launch(width: int, height: int, tile: int = 16) -> dict:
+    """This tree's `render_windows` launch for an image: patch tiles, CTAs,
+    threads."""
+    import ctypes
+
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+
+    out = (ctypes.c_int * 4)()
+    rc = _build.load().gsdf_render_windows_shape(width, height, tile, out)
+    if rc != 0:
+        raise RuntimeError(f"gsdf_render_windows_shape: CUDA error {rc}")
+    return {"patch_tiles": [out[0], out[1]], "ctas": out[2], "threads": out[3]}
+
+
+# `render_windows`' sweep: the scene's active blocks and SWEEP_BLOCKS
+# synthetic ones, at each image size (the VGA camera's field of view)
+SWEEP_BLOCKS = 4096
+SWEEP_SIZES = ((640, 480), (1920, 1080), (3840, 2160))
+
+
+def synthetic_grid(grid, blocks: int, seed: int = 19):
+    """The render scene's grid with `blocks` active block slots: its own
+    active blocks, then seeded ones drawn uniformly from their bounding box
+    (so that they project on screen, near and far, small and wide)."""
+    import numpy as np
+    import torch
+
+    na = int(grid.num_active)
+    if blocks <= na:
+        return grid
+    bc = grid.block_coords.clone()
+    act = bc[:na].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    extra = rng.integers(act.min(0), act.max(0) + 1, size=(blocks - na, 3))
+    bc[na:blocks] = torch.from_numpy(extra.astype(np.int32)).to(bc.device)
+    return grid._replace(block_coords=bc, num_active=torch.tensor(
+        blocks, dtype=torch.int32, device=bc.device))
+
+
+def windows_sweep(grid, gcfg, R, t) -> dict:
+    """`render_windows` of the imported tree, every pixel clamped (the
+    raster render's form) and the stride-4 coarse pixels, at the scene's
+    active blocks and SWEEP_BLOCKS, at each of SWEEP_SIZES: ms by CUDA
+    events beside the launch floor and the bound."""
+    from gradient_sdf_tpu_torch.ops.kernels import render_windows as rw
+    from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
+
+    K_d, R_d, t_d = device_camera(R, t, grid.device)
+    out = {}
+    for blocks in (int(grid.num_active), SWEEP_BLOCKS):
+        g = synthetic_grid(grid, blocks)
+        for w, h in SWEEP_SIZES:
+            k = K_d if (w, h) == (W, H) else scaled_camera(K_d, w, h)
+            for form, kw in (("every pixel", {}), ("stride-4 coarse",
+                                                   dict(stride=4, offset=2))):
+                n_out = w * h if not kw else (h // 4) * (w // 4)
+                bound, by = windows_bound_ms(blocks, n_out)
+                out[f"{blocks} blocks, {w}x{h}, {form}"] = {
+                    "ms": median_ms(lambda: rw.render_windows(
+                        g, k, R_d, t_d, w, h, gcfg, s_min=S_MIN, s_max=S_MAX,
+                        **kw)),
+                    "launch_floor_ms": render_windows_floor_ms(w, h, n_out),
+                    "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def prior_inputs(grid, gcfg, fcfg, R, t) -> dict:
+    """The priors' inputs at this pose: the stride-4 coarse march's s_mid
+    and found, the stride-4 render's camera-z depth and the rays'
+    inv_hnorm, the margins, and the masked coarse image that `max_pool2d`
+    (the library yardstick of the stride prior's max half) takes."""
+    import torch
+    from gradient_sdf_tpu_torch.ops import raycast
+    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
+    from gradient_sdf_tpu_torch.ops.kernels import render_windows as rw
+
+    dev = grid.device
+    K_d, R_d, t_d = device_camera(R, t, dev)
+    stride, off = 4, 2
+    hc, wc = H // stride, W // stride
+    o, d, inv_hnorm = raycast.camera_rays(K_d, R_d, t_d, W, H, device=dev)
+
+    def coarse(a):
+        img = a.reshape((H, W) + tuple(a.shape[1:]))
+        return img[off::stride, off::stride].reshape(
+            (-1,) + tuple(a.shape[1:])).contiguous()
+
+    lo_c, hi_c = rw.render_windows(grid, K_d, R_d, t_d, W, H, gcfg, stride=stride,
+                                   offset=off, s_min=S_MIN, s_max=S_MAX)
+    res_c = rm.raycast_march(coarse(o), coarse(d), lo_c, hi_c, grid.directory,
+                             grid.coarse_occ, grid.dist, grid.weight, gcfg, fcfg,
+                             width=wc)
+    vs = gcfg.voxel_size
+    return {"s_mid": res_c.s_mid, "found": res_c.found,
+            "prior": render(grid, gcfg, fcfg, R_d, t_d)[0].reshape(-1),
+            "inv_hnorm": inv_hnorm, "hc": hc, "wc": wc, "stride": stride,
+            "margin": fcfg.trunc_voxels * vs + 2 * vs, "margin4": 4 * vs,
+            "masked": torch.where(res_c.found, res_c.s_mid, -float("inf")
+                                  ).reshape(1, 1, hc, wc)}
+
+
+def prior_calls(p) -> dict:
+    """{case: (kernel wrapper, plain version, args, keywords)} of the two
+    priors in both miss rules."""
+    from gradient_sdf_tpu_torch.ops.kernels import prior_windows as pw
+
+    clamps = dict(s_min=S_MIN, s_max=S_MAX)
+    sw = dict(hc=p["hc"], wc=p["wc"], stride=p["stride"], margin=p["margin"],
+              **clamps)
+    dw = dict(margin=p["margin4"], **clamps)
+    stride_pair = (pw.stride_windows, pw.stride_windows_reference,
+                   (p["s_mid"], p["found"]))
+    depth_pair = (pw.depth_prior_windows, pw.depth_prior_windows_reference,
+                  (p["prior"], p["inv_hnorm"]))
+    return {
+        "stride prior, misses skipped": (*stride_pair, dict(sw, skip=True)),
+        "stride prior, misses marched": (*stride_pair, dict(sw, skip=False)),
+        "depth prior, holes skipped, 4-voxel margin": (
+            *depth_pair, dict(dw, skip=True)),
+        "depth prior, holes marched, default margin": (
+            *depth_pair, dict(dw, margin=p["margin"], skip=False)),
+    }
+
+
+def prior_times(p) -> dict:
+    """The imported tree's `prior_windows` in both modes (stride: misses
+    skipped; depth: the incremental mode's holes skipped, 4-voxel margin):
+    ms, plain ms, launch floor, bound and (stride) a 3x3 `max_pool2d` of
+    the masked coarse image, the library yardstick of its max half."""
+    import torch
+    from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
+
+    calls = prior_calls(p)
+    timed = {"stride": calls["stride prior, misses skipped"],
+             "depth": calls["depth prior, holes skipped, 4-voxel margin"]}
+    out = {}
+    for form, (kern, ref, args, kw) in timed.items():
+        bytes_in = 5 * p["hc"] * p["wc"] if form == "stride" else 8 * H * W
+        bound, by = prior_bound_ms(bytes_in, H * W)
+        out[form] = {
+            "ms": median_ms(lambda: kern(*args, **kw)),
+            "plain_ms": median_ms(lambda: ref(*args, **kw), reps=5),
+            "launch_floor_ms": prior_windows_floor_ms(form == "depth", W, H,
+                                                      p["stride"]),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": (median_ms(lambda: torch.nn.functional.max_pool2d(
+                p["masked"], 3, 1, 1)) if form == "stride" else None)}
+    return out
+
+
 def windows_check_and_time(grid, gcfg, fcfg, R, t) -> dict:
     """`render_windows` and `prior_windows` against their plain versions
     on the card, bit for bit (tile grid and windows), in every form the
-    render takes and at the escapes; then each timed beside its plain
-    version, the launch floor (empty kernels at its grids), its bound and,
+    render takes, at the escapes, at 1920x1080 and 3840x2160 and at
+    SWEEP_BLOCKS synthetic active blocks; then each timed beside its plain
+    version, the launch floor (an empty kernel at its grid), its bound and,
     for the stride prior, the library yardstick of its max half (a 3x3
-    `max_pool2d` of the masked coarse image)."""
+    `max_pool2d` of the masked coarse image); and `render_windows` over
+    the sweep of active blocks and image sizes (`windows_sweep`)."""
     import torch
-    from gradient_sdf_tpu_torch.ops import raycast
-    from gradient_sdf_tpu_torch.ops.kernels import _build
-    from gradient_sdf_tpu_torch.ops.kernels import prior_windows as pw
-    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
     from gradient_sdf_tpu_torch.ops.kernels import render_windows as rw
     from gradient_sdf_tpu_torch.tools.fusion_bench import median_ms
 
     dev = grid.device
     K_d, R_d, t_d = device_camera(R, t, dev)
     stride, off = 4, 2
-    hc, wc = H // stride, W // stride
     clamps = dict(s_min=S_MIN, s_max=S_MAX)
     na = int(grid.num_active)
     # a camera inside the band: blocks straddle its plane (the global range)
     bs, vs = gcfg.block_shape, gcfg.voxel_size
     c0 = (grid.block_coords[0].float() * bs + 0.5 * (bs - 1)) * vs
     vga = (W, H, K_d)
-    # larger images, the VGA camera's field of view: 1920x1080's 8160 tiles
-    # (the render's own tile and span) past a CTA's default 48 KB of shared
-    # memory; 3840x2160's 32400 past an H100's opt-in 227 KB (the grid in
-    # global memory), with spans of up to 64 tiles rasterized
+    # larger images, the VGA camera's field of view: the render's own tile
+    # and span, and spans of up to 64 tiles rasterized
     big = {w_h: (*w_h, scaled_camera(K_d, *w_h)) for w_h in ((1920, 1080),
                                                             (3840, 2160))}
-    lib = _build.load()
+    many = synthetic_grid(grid, SWEEP_BLOCKS)
     cases = {
-        "raster (every pixel, clamped)": (dict(**clamps), t_d, vga),
+        "raster (every pixel, clamped)": (dict(**clamps), t_d, vga, grid),
         "stride-4 coarse pixels, clamped": (dict(stride=stride, offset=off,
-                                                 **clamps), t_d, vga),
-        "block_raster_windows (every pixel)": (dict(), t_d, vga),
+                                                 **clamps), t_d, vga, grid),
+        "block_raster_windows (every pixel)": (dict(), t_d, vga, grid),
         f"active_cap {na // 2} < {na} blocks (the escape)": (
-            dict(active_cap=na // 2), t_d, vga),
-        "camera inside the band (near blocks)": (dict(), c0, vga),
-        "1920x1080, every pixel": (dict(), t_d, big[1920, 1080]),
+            dict(active_cap=na // 2), t_d, vga, grid),
+        "camera inside the band (near blocks)": (dict(), c0, vga, grid),
+        "1920x1080, every pixel": (dict(), t_d, big[1920, 1080], grid),
         "3840x2160, every pixel, spans to 64 tiles": (
-            dict(max_span=64), t_d, big[3840, 2160]),
+            dict(max_span=64), t_d, big[3840, 2160], grid),
+        f"{SWEEP_BLOCKS} synthetic blocks, every pixel, clamped": (
+            dict(**clamps), t_d, vga, many),
+        f"{SWEEP_BLOCKS} synthetic blocks, 3840x2160, spans to 64 tiles": (
+            dict(max_span=64), t_d, big[3840, 2160], many),
     }
-    out = {"render_windows": {"cases": {}, "smem_tiles":
-                              lib.gsdf_render_windows_smem_tiles()},
+    out = {"render_windows": {"cases": {}, "launch": {
+               f"{w}x{h}": render_windows_launch(w, h) for w, h in SWEEP_SIZES}},
            "prior_windows": {"cases": {}}}
-    for what, (kw, tt, (w, h, k)) in cases.items():
-        got = rw.render_windows(grid, k, R_d, tt, w, h, gcfg, **kw)
-        want = rw.render_windows_reference(grid, k, R_d, tt, w, h, gcfg, **kw)
+    for what, (kw, tt, (w, h, k), g) in cases.items():
+        got = rw.render_windows(g, k, R_d, tt, w, h, gcfg, **kw)
+        want = rw.render_windows_reference(g, k, R_d, tt, w, h, gcfg, **kw)
         # the finished tile grid: one window a tile, unclamped
         tkw = dict(kw, stride=16, offset=0, s_min=None, s_max=None)
-        tiles = rw.render_windows(grid, k, R_d, tt, w, h, gcfg, **tkw)
-        tiles_want = rw.render_windows_reference(grid, k, R_d, tt, w, h, gcfg, **tkw)
+        tiles = rw.render_windows(g, k, R_d, tt, w, h, gcfg, **tkw)
+        tiles_want = rw.render_windows_reference(g, k, R_d, tt, w, h, gcfg, **tkw)
         torch.cuda.synchronize()
         lo_t = tiles_want[0]
         out["render_windows"]["cases"][what] = {
@@ -646,49 +832,27 @@ def windows_check_and_time(grid, gcfg, fcfg, R, t) -> dict:
             "empty_windows": int((want[0] > want[1]).sum())}
     for form, kw in (("raster", dict(**clamps)),
                      ("stride4", dict(stride=stride, offset=off, **clamps))):
-        n_out = H * W if form == "raster" else hc * wc
-        call = lambda kw=kw: rw.render_windows(  # noqa: E731
-            grid, K_d, R_d, t_d, W, H, gcfg, **kw)
+        n_out = H * W if form == "raster" else (H // stride) * (W // stride)
         bound, by = windows_bound_ms(min(na, 4096), n_out)
         out["render_windows"][form] = {
-            "ms": median_ms(call),
+            "ms": median_ms(lambda kw=kw: rw.render_windows(
+                grid, K_d, R_d, t_d, W, H, gcfg, **kw)),
             "plain_ms": median_ms(lambda kw=kw: rw.render_windows_reference(
                 grid, K_d, R_d, t_d, W, H, gcfg, **kw), reps=5),
-            "launch_floor_ms": _empty_ms("gsdf_render_windows_empty", n_out),
+            "launch_floor_ms": render_windows_floor_ms(W, H, n_out),
             "bound_ms": bound, "bound_by": by, "library_ms": None}
+    bound, by = windows_bound_ms(SWEEP_BLOCKS, H * W)
+    out["render_windows"][f"raster_{SWEEP_BLOCKS}_blocks"] = {
+        "ms": median_ms(lambda: rw.render_windows(many, K_d, R_d, t_d, W, H,
+                                                  gcfg, **clamps)),
+        "launch_floor_ms": render_windows_floor_ms(W, H, H * W),
+        "bound_ms": bound, "bound_by": by}
+    out["render_windows"]["sweep"] = windows_sweep(grid, gcfg, R, t)
 
     # the stride prior on the coarse march of this pose; the depth prior on
     # the stride-4 render
-    o, d, inv_hnorm = raycast.camera_rays(K_d, R_d, t_d, W, H, device=dev)
-
-    def coarse(a):
-        img = a.reshape((H, W) + tuple(a.shape[1:]))
-        return img[off::stride, off::stride].reshape(
-            (-1,) + tuple(a.shape[1:])).contiguous()
-
-    lo_c, hi_c = rw.render_windows(grid, K_d, R_d, t_d, W, H, gcfg, stride=stride,
-                                   offset=off, **clamps)
-    res_c = rm.raycast_march(coarse(o), coarse(d), lo_c, hi_c, grid.directory,
-                             grid.coarse_occ, grid.dist, grid.weight, gcfg, fcfg,
-                             width=wc)
-    prior = render(grid, gcfg, fcfg, R_d, t_d)[0].reshape(-1)
-    T = fcfg.trunc_voxels * vs
-    margins = {"default": T + 2 * vs, "4 voxels": 4 * vs}
-    sw = dict(hc=hc, wc=wc, stride=stride, margin=margins["default"], **clamps)
-    dw = dict(margin=margins["4 voxels"], **clamps)
-    stride_pair = (pw.stride_windows, pw.stride_windows_reference,
-                   (res_c.s_mid, res_c.found))
-    pcases = {
-        "stride prior, misses skipped": (*stride_pair, dict(sw, skip=True)),
-        "stride prior, misses marched": (*stride_pair, dict(sw, skip=False)),
-        "depth prior, holes skipped, 4-voxel margin": (
-            pw.depth_prior_windows, pw.depth_prior_windows_reference,
-            (prior, inv_hnorm), dict(dw, skip=True)),
-        "depth prior, holes marched, default margin": (
-            pw.depth_prior_windows, pw.depth_prior_windows_reference,
-            (prior, inv_hnorm), dict(dw, margin=margins["default"], skip=False)),
-    }
-    for what, (kern, ref, args, kw) in pcases.items():
+    p = prior_inputs(grid, gcfg, fcfg, R, t)
+    for what, (kern, ref, args, kw) in prior_calls(p).items():
         got, want = kern(*args, **kw), ref(*args, **kw)
         torch.cuda.synchronize()
         out["prior_windows"]["cases"][what] = {
@@ -696,22 +860,132 @@ def windows_check_and_time(grid, gcfg, fcfg, R, t) -> dict:
             "windows_differing": _equal_bits(got[0], want[0])
             + _equal_bits(got[1], want[1]),
             "empty_windows": int((want[0] > want[1]).sum())}
-    # the library yardstick of the stride prior's max half
-    masked = torch.where(res_c.found, res_c.s_mid,
-                         -float("inf")).reshape(1, 1, hc, wc)
-    timed = {"stride": pcases["stride prior, misses skipped"],
-             "depth": pcases["depth prior, holes skipped, 4-voxel margin"]}
-    for form, (kern, ref, args, kw) in timed.items():
-        bytes_in = 5 * hc * wc if form == "stride" else 8 * H * W
-        bound, by = prior_bound_ms(bytes_in, H * W)
-        out["prior_windows"][form] = {
-            "ms": median_ms(lambda: kern(*args, **kw)),
-            "plain_ms": median_ms(lambda: ref(*args, **kw), reps=5),
-            "launch_floor_ms": _empty_ms("gsdf_prior_windows_empty", H * W),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": (median_ms(lambda: torch.nn.functional.max_pool2d(
-                masked, 3, 1, 1)) if form == "stride" else None)}
-    out["coarse_hits"] = int(res_c.found.sum())
+    out["prior_windows"].update(prior_times(p))
+    out["coarse_hits"] = int(p["found"].sum())
+    return out
+
+
+# The window kernels taken apart (`windows_split`): one-switch builds of a
+# copy of this tree's `csrc/render_windows.cu` and `csrc/prior_windows.cu`,
+# made like fusion_bench.SPLIT_SWITCHES (each anchor in its source exactly
+# once). A build that stops early keeps its last stage's results live
+# through a store that does not happen.
+_RW_READS = ("na + b0 + b1 + b2 == -7 && fx + cx + fy + cy + R00 + R01 + R02 "
+             "+ R10 + R11 + R12 + R20 + R21 + R22 + tx + ty + tz == -1.5e30f")
+_RW_LOOP = "    for (; i < n; i += kThreads) {\n"
+RENDER_WINDOWS_SWITCHES = {
+    "patches, a CTA projects every block": (_RW_LOOP, {
+        "empty kernel at its grid": [(
+            "  extern __shared__ int smem[];   // the patch",
+            "  return;\n  extern __shared__ int smem[];   // the patch")],
+        "reads alone": [(
+            "  const bool over = na > a.cap;\n",
+            f"  if ({_RW_READS}) lo[0] = 0.f;\n  return;\n"
+            "  const bool over = na > a.cap;\n")],
+        "reads and stores (no projection)": [(
+            "  if (!over) {\n    // 2. the projection",
+            "  if (false) {\n    // 2. the projection")],
+        "no atomics (projection into a sink)": [
+            ("    const int n = min(na, a.cap);\n",
+             "    const int n = min(na, a.cap);\n    int sink = 0;\n"),
+            ("              atomicMin(lo_s + k, lo_bits);\n"
+             "              atomicMax(hi_s + k, hi_bits);\n",
+             "              sink += k + (lo_bits ^ hi_bits);\n"),
+            ("    if ((tid & 31) == 0 && g_lo != kInfBits) atomicMin(glob, g_lo);\n"
+             "    if ((tid & 31) == 0 && g_hi != kNegInfBits) atomicMax(glob + 1, g_hi);\n",
+             "    if (sink + g_lo + g_hi == 123456789) lo[0] = 0.f;\n")],
+        "no stores (reads, projection, atomics)": [(
+            "  // 4. the stores: the output rows",
+            "  if (lo_s[tid % np] == 7 && glob[0] == 7) lo[0] = 0.f;\n  return;\n"
+            "  // 4. the stores: the output rows")],
+        "one slot a thread (the first 1024 blocks)": [(
+            _RW_LOOP, "    for (; i < min(n, kThreads); i += kThreads) {\n")],
+        "behind and near tests alone (every block, no division)": [(
+            "      if (!glob_block) {\n        const float u = fx * qx / qz + cx;",
+            "      if (!glob_block && qz == -1.5e30f) {\n"
+            "        const float u = fx * qx / qz + cx;")],
+        "512 threads a CTA": [("constexpr int kThreads = 1024;",
+                               "constexpr int kThreads = 512;")],
+    }),
+}
+PRIOR_WINDOWS_SWITCHES = {
+    "32 x 8 cells staged, float4 rows": ("constexpr int kCellsX = 32", {
+        "empty kernel at its grid": [(
+            "  __shared__ float s_mn[kHaloY][kHaloX];",
+            "  return;\n  __shared__ float s_mn[kHaloY][kHaloX];")],
+        "staging alone": [(
+            "  // 2. the cell pass: a thread a cell\n",
+            "  if (s_mn[tid / kHaloX % kHaloY][tid % kHaloX] == -1.5e30f && "
+            "s_ok[0][tid % kHaloX]) lo[0] = 0.f;\n  return;\n"
+            "  // 2. the cell pass: a thread a cell\n")],
+        "staging and cell pass (no stores)": [(
+            "  // 3. the stores: a group of lanes a pixel row\n",
+            "  if (cell[tid / kCellsX][tid % kCellsX].x == -1.5e30f) lo[0] = 0.f;\n"
+            "  return;\n  // 3. the stores: a group of lanes a pixel row\n")],
+        "cell pass and stores (no staging loads)": [(
+            "  for (int k = tid; k < kHaloY * kHaloX; k += kThreads) {",
+            "  for (int k = tid; k < 0; k += kThreads) {")],
+        "16 x 8 cells a CTA of 128": [
+            ("constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),
+            ("constexpr int kCellsX = 32", "constexpr int kCellsX = 16")],
+    }),
+}
+RENDER_WINDOWS_FUNCS = ("gsdf_render_windows_f32",)
+PRIOR_WINDOWS_FUNCS = ("gsdf_prior_windows_f32",)
+
+
+def windows_split(grid, gcfg, fcfg, R, t) -> dict:
+    """Step 0 of the two window kernels: this tree's `render_windows.cu`
+    and `prior_windows.cu` built as they are and under each switch of
+    their designs (RENDER_WINDOWS_SWITCHES, PRIOR_WINDOWS_SWITCHES; one
+    `nvcc` a build, started together), each launched through this
+    package's wrapper and timed (`median_ms`): `render_windows` every pixel
+    and coarse at the scene's blocks and every pixel at SWEEP_BLOCKS (VGA);
+    `prior_windows` in stride mode (its switches cut the stride kernel) and
+    depth mode; with each build's ptxas report and its kernels' SASS
+    instructions and CALLs (the IEEE division's and square root's slow
+    paths)."""
+    from gradient_sdf_tpu_torch.ops.kernels import render_windows as rw
+    from gradient_sdf_tpu_torch.tools.fusion_bench import (
+        build_all, median_ms, ptxas_lines, switch_jobs, with_lib)
+
+    jobs_r, design_r = switch_jobs([OWN_ROOT], "render_windows.cu",
+                                   RENDER_WINDOWS_SWITCHES, RENDER_WINDOWS_FUNCS)
+    jobs_p, design_p = switch_jobs([OWN_ROOT], "prior_windows.cu",
+                                   PRIOR_WINDOWS_SWITCHES, PRIOR_WINDOWS_FUNCS)
+    built = build_all([((f"render_windows", k[1]), a, kw) for k, a, kw in jobs_r]
+                      + [((f"prior_windows", k[1]), a, kw) for k, a, kw in jobs_p])
+    K_d, R_d, t_d = device_camera(R, t, grid.device)
+    many = synthetic_grid(grid, SWEEP_BLOCKS)
+    clamps = dict(s_min=S_MIN, s_max=S_MAX)
+    rcases = {
+        f"{int(grid.num_active)} blocks, every pixel": (grid, clamps),
+        f"{int(grid.num_active)} blocks, stride-4 coarse": (
+            grid, dict(clamps, stride=4, offset=2)),
+        f"{SWEEP_BLOCKS} blocks, every pixel": (many, clamps),
+    }
+    p = prior_inputs(grid, gcfg, fcfg, R, t)
+    calls = prior_calls(p)
+    pcases = {"stride": calls["stride prior, misses skipped"],
+              "depth": calls["depth prior, holes skipped, 4-voxel margin"]}
+    out = {"render_windows": {"design": design_r[0]},
+           "prior_windows": {"design": design_p[0]}}
+    for (kernel, name), (lib, log) in built.items():
+        if kernel == "render_windows":
+            ms = {what: median_ms(lambda g=g, kw=kw: with_lib(
+                lib, lambda: rw.render_windows(g, K_d, R_d, t_d, W, H, gcfg, **kw)))
+                  for what, (g, kw) in rcases.items()}
+        else:
+            ms = {form: median_ms(lambda c=c: with_lib(
+                lib, lambda: c[0](*c[2], **c[3])))
+                  for form, c in pcases.items()}
+        code = [v for k, v in _sass_functions(lib._name).items()
+                if kernel in k and "empty" not in k]
+        out[kernel][name] = {
+            "ms": ms, "ptxas": ptxas_lines(log, "windows"),
+            "sass": [{"instructions": len(c),
+                      "calls": sum(ins.startswith("CALL") for _, ins in c)}
+                     for c in code]}
     return out
 
 
@@ -921,8 +1195,27 @@ def tree_times() -> dict:
                               for k, kw in modes.items()}}
 
 
-def run_tree(root):
-    cmd = [sys.executable, os.path.abspath(__file__), "--tree", root]
+def tree_window_times() -> dict:
+    """The imported tree's window kernels on its own fusion of the scene
+    (for `--windows --parent`): `render_windows` over the sweep
+    (`windows_sweep`), `prior_windows` in both modes (`prior_times`), and
+    each render mode's ms, launches and syncs."""
+    import torch
+
+    grid, gcfg, fcfg, _, poses = render_scene(torch.device("cuda"))
+    R, t = poses[4]
+    return {"render_windows": windows_sweep(grid, gcfg, R, t),
+            "prior_windows": prior_times(prior_inputs(grid, gcfg, fcfg, R, t)),
+            "render_ms": {k: v["ms"] for k, v in
+                          render_times(grid, gcfg, fcfg, R, t).items()},
+            "render_counts": {k: render_counts(grid, gcfg, fcfg, R, t, **kw)
+                              for k, kw in mode_kwargs(grid, gcfg, fcfg, R,
+                                                       t).items()}}
+
+
+def run_tree(root, windows: bool = False):
+    cmd = [sys.executable, os.path.abspath(__file__), "--tree", root] + (
+        ["--windows"] if windows else [])
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)} failed:\n{proc.stderr[-3000:]}")
@@ -954,7 +1247,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.tree:
-        print(json.dumps(tree_times()), flush=True)
+        print(json.dumps(tree_window_times() if args.windows else tree_times()),
+              flush=True)
         return 0
     from gradient_sdf_tpu_torch.ops.kernels import _build
     from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
@@ -970,6 +1264,8 @@ def main():
         fin = finish_check_and_time(grid, gcfg, fcfg, R, t) if args.finish else None
         if win:
             print(json.dumps({"windows": win}), flush=True)
+            print(json.dumps({"windows_split": windows_split(grid, gcfg, fcfg,
+                                                             R, t)}), flush=True)
         if fin:
             print(json.dumps({"finish": fin}), flush=True)
         failures += windows_finish_ok(win, fin)
@@ -1015,7 +1311,8 @@ def main():
         torch.cuda.empty_cache()
         for name, root in (("parent", args.parent), ("this", OWN_ROOT),
                            ("this", OWN_ROOT), ("parent", args.parent)):
-            print(json.dumps({"tree": name, **run_tree(root)}), flush=True)
+            print(json.dumps({"tree": name, **run_tree(root, args.windows)}),
+                  flush=True)
     print(smi_line(), flush=True)
     if failures:
         print("raycast_bench: checks failed:\n" + "\n".join(failures),

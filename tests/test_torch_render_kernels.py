@@ -68,6 +68,10 @@ RASTER_CASES = {
     "strided, 16-pixel tiles (all wide)": (2, 16, 4, 4, 2, True, 4096, False),
     "active_cap escape, strided": (2, 4, 16, 4, 2, True, 8, False),
     "camera inside the band": (2, 16, 4, 1, 0, False, 4096, True),
+    "partial tiles at both edges, stride 3 offset 1": (4, 7, 16, 3, 1, False, 4096,
+                                                       False),
+    "blocks straddle patch edges, camera in the band": (2, 4, 16, 1, 0, False,
+                                                        4096, True),
 }
 
 
@@ -122,17 +126,34 @@ def _jax_prior_windows(ok, mn, mx, skip):
     return np.asarray(jnp.maximum(lo, S_MIN)), np.asarray(jnp.minimum(hi, S_MAX))
 
 
-@pytest.mark.parametrize("skip", [True, False])
-def test_stride_windows_match_jax(skip):
-    """The stride prior's windows from a seeded coarse image (hits in 0.5-2
-    m, a few missing, an all-miss corner) against `_neighborhood_minmax` and
-    the window arithmetic of the JAX package, repeated over 4 x 4 pixels;
-    1e-5."""
+# coarse images (hc, wc, stride): one inside the kernel's 32 x 8 cell
+# rectangle, a width past it at a stride whose rows of four pixels span two
+# cells (and a pixel row that is no multiple of 4), and a stride of 8
+STRIDE_SHAPES = [(9, 12, 4), (7, 33, 2), (5, 37, 8)]
+# (skip, shape), the first shape's cases under their names before the
+# other shapes came
+STRIDE_CASES = [pytest.param(skip, shape, id=str(skip) if shape == STRIDE_SHAPES[0]
+                             else f"{skip}-{'x'.join(map(str, shape))}")
+                for shape in STRIDE_SHAPES for skip in (True, False)]
+
+
+def _coarse_image(hc, wc):
+    """A seeded coarse image: hits in 0.5-2 m, a few missing, an all-miss
+    corner."""
     rng = np.random.default_rng(18)
-    hc, wc, stride = 9, 12, 4
     img = rng.uniform(0.5, 2.0, (hc, wc)).astype(np.float32)
     mask = rng.random((hc, wc)) < 0.6
     mask[:3, :4] = False
+    return img, mask
+
+
+@pytest.mark.parametrize("skip,shape", STRIDE_CASES)
+def test_stride_windows_match_jax(skip, shape):
+    """The stride prior's windows from a seeded coarse image against
+    `_neighborhood_minmax` and the window arithmetic of the JAX package,
+    repeated over stride x stride pixels; 1e-5."""
+    hc, wc, stride = shape
+    img, mask = _coarse_image(hc, wc)
     lo, hi = pw.stride_windows(torch.from_numpy(img).reshape(-1),
                                torch.from_numpy(mask).reshape(-1), hc, wc, stride,
                                MARGIN, S_MIN, S_MAX, skip)
@@ -144,12 +165,14 @@ def test_stride_windows_match_jax(skip):
     assert bool((lo > hi).any()) == skip
 
 
-@pytest.mark.parametrize("skip", [True, False])
-def test_depth_prior_windows_match_jax(skip):
+@pytest.mark.parametrize("skip,n", [
+    pytest.param(skip, n, id=str(skip) if n == 500 else f"{skip}-{n}")
+    for n in (500, 77) for skip in (True, False)])
+def test_depth_prior_windows_match_jax(skip, n):
     """A depth prior's windows (seeded camera-z depths with holes, the
-    rays' inv_hnorm) against the JAX package's arithmetic (:803-824); 1e-5."""
+    rays' inv_hnorm; 77 rays: a tail past the kernel's rows of four) against
+    the JAX package's arithmetic (:803-824); 1e-5."""
     rng = np.random.default_rng(19)
-    n = 500
     prior = rng.uniform(0.4, 2.6, n).astype(np.float32)
     prior[rng.random(n) < 0.2] = 0.0
     inv_hnorm = rng.uniform(0.7, 1.0, n).astype(np.float32)
@@ -322,6 +345,28 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_raise_elsewhere(fused):
                       d.to("meta"), None, meta, GCFG, FCFG)
 
 
+@pytest.mark.parametrize("source", ["render_windows.cu", "prior_windows.cu"])
+def test_bench_switches_match_the_kernel_source(source):
+    """`tools/raycast_bench.py --windows` takes each window kernel apart by
+    one-switch builds of a copy of its source: the source is one of the
+    designs its table knows, and every switch's anchor is in it exactly
+    once."""
+    import os
+
+    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from gradient_sdf_tpu_torch.tools import raycast_bench
+
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = f.read()
+    table = {"render_windows.cu": raycast_bench.RENDER_WINDOWS_SWITCHES,
+             "prior_windows.cu": raycast_bench.PRIOR_WINDOWS_SWITCHES}[source]
+    designs = [d for d, (mark, _) in table.items() if mark in text]
+    assert len(designs) == 1
+    for name, edits in table[designs[0]][1].items():
+        for old, _ in edits:
+            assert text.count(old) == 1, name
+
+
 # ---------------------------------------------------------------------------
 # the kernels against the plain versions (a card)
 # ---------------------------------------------------------------------------
@@ -360,14 +405,14 @@ def test_cuda_render_windows_match_plain_bit_for_bit(fused, case):
 def test_cuda_render_windows_at_large_images_match_plain_bit_for_bit(
         fused, width, height, span):
     """Images past VGA with the fixture's camera scaled to them: 1920x1080
-    (8160 tiles, past a CTA's default 48 KB of shared memory) and 3840x2160
-    (32400, past an H100's opt-in 227 KB: the tile grid in global memory);
-    the render's own span of 4 (nearly every block wide) and spans that
-    rasterize every block into its tiles (64 tiles at 1920, 160 at 3840:
-    the same 64 of the fixture's pixels), leaving tiles no block covers.
-    Windows and tile grid bit for bit."""
+    (8160 tiles) and 3840x2160 (32400; the kernel's patches grow with the
+    image, 16 x 8 and 32 x 16 tiles); the render's own span of 4 (nearly
+    every block wide) and spans that rasterize every block into its tiles
+    (64 tiles at 1920, 160 at 3840: the same 64 of the fixture's pixels),
+    leaving tiles no block covers. Windows and tile grid bit for bit; a call
+    is one CUDA launch at every size."""
     _card()
-    from gradient_sdf_tpu_torch.ops.kernels import _build
+    from torch.profiler import ProfilerActivity, profile
 
     _, poses, _, tg = fused
     cg = tvg.VoxelGrid(*(a.cuda() for a in tg))
@@ -376,8 +421,13 @@ def test_cuda_render_windows_at_large_images_match_plain_bit_for_bit(
     k[0, 0] *= width / W
     k[1, 1] *= width / W
     k[0, 2], k[1, 2] = 0.5 * (width - 1), 0.5 * (height - 1)
-    nt = -(-width // 16) * -(-height // 16)
-    assert (nt > _build.load().gsdf_render_windows_smem_tiles()) == (width > 2000)
+    rw.render_windows(cg, k, R, t, width, height, GCFG, max_span=span)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rw.render_windows(cg, k, R, t, width, height, GCFG, max_span=span)
+        torch.cuda.synchronize()
+    assert sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernel")) == 1
     for form in (dict(), dict(stride=16), dict(stride=4, offset=2, s_min=S_MIN,
                                                s_max=S_MAX)):
         got = rw.render_windows(cg, k, R, t, width, height, GCFG, max_span=span,
@@ -392,8 +442,12 @@ def test_cuda_render_windows_at_large_images_match_plain_bit_for_bit(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("skip", [True, False])
-def test_cuda_prior_windows_match_plain_bit_for_bit(fused, skip):
+@pytest.mark.parametrize("skip,shape", STRIDE_CASES)
+def test_cuda_prior_windows_match_plain_bit_for_bit(fused, skip, shape):
+    """Both modes bit for bit: the stride prior on the seeded coarse image
+    of `shape` and on the fixture's render; the depth prior on that render,
+    on all but its last 3 rays (a tail past the rows of four) and from its
+    second ray on (pointers off 16 bytes: the scalar loads)."""
     _card()
     _, poses, _, tg = fused
     cg = tvg.VoxelGrid(*(a.cuda() for a in tg))
@@ -403,15 +457,20 @@ def test_cuda_prior_windows_match_plain_bit_for_bit(fused, skip):
     img = depth[2::4, 2::4] / ih.reshape(H, W)[2::4, 2::4]
     args = (img.reshape(-1).contiguous(), hit[2::4, 2::4].reshape(-1).contiguous(),
             H // 4, W // 4, 4, MARGIN, S_MIN, S_MAX, skip)
+    hc, wc, stride = shape
+    img_s, mask_s = (torch.from_numpy(a).reshape(-1).cuda() for a in _coarse_image(hc, wc))
+    seeded = (img_s, mask_s, hc, wc, stride, MARGIN, S_MIN, S_MAX, skip)
+    dp = depth.reshape(-1)
     pw.reset_launch_count()
-    for got, want in ((pw.stride_windows(*args), pw.stride_windows_reference(*args)),
-                      (pw.depth_prior_windows(depth.reshape(-1), ih, 4 * VS, S_MIN,
-                                              S_MAX, skip),
-                       pw.depth_prior_windows_reference(depth.reshape(-1), ih,
-                                                        4 * VS, S_MIN, S_MAX, skip))):
+    calls = [(pw.stride_windows, pw.stride_windows_reference, a) for a in (args, seeded)]
+    calls += [(pw.depth_prior_windows, pw.depth_prior_windows_reference,
+               (p, i, 4 * VS, S_MIN, S_MAX, skip))
+              for p, i in ((dp, ih), (dp[:-3], ih[:-3]), (dp[1:], ih[1:]))]
+    for kern, ref, a in calls:
+        got, want = kern(*a), ref(*a)
         torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert pw.launch_count == 2
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), a[2:]
+    assert pw.launch_count == len(calls)
 
 
 @pytest.mark.gpu
