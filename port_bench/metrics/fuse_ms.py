@@ -1,0 +1,7 @@
+"""Mean host ms a frame of the span `fuse_ms` (outside the profiled stretch)."""
+
+from port_bench.harness import mean
+
+
+def read(trace):
+    return mean(trace["spans"].get("fuse_ms", []))
