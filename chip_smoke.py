@@ -782,39 +782,16 @@ def run_app(data, results, extra, data_type="synth", voxel_size="0.02"):
         return json.load(f)
 
 
-def kernel_modules():
-    from gradient_sdf_tpu_torch.ops.kernels import ba_terms as ba
-    from gradient_sdf_tpu_torch.ops.kernels import fals_normals as fn
-    from gradient_sdf_tpu_torch.ops.kernels import fuse_integrate as fi
-    from gradient_sdf_tpu_torch.ops.kernels import gn_track as gt
-    from gradient_sdf_tpu_torch.ops.kernels import merge_clear as mc
-    from gradient_sdf_tpu_torch.ops.kernels import prior_windows as pw
-    from gradient_sdf_tpu_torch.ops.kernels import ray_finish as rf
-    from gradient_sdf_tpu_torch.ops.kernels import raycast_march as rm
-    from gradient_sdf_tpu_torch.ops.kernels import render_windows as rw
-    from gradient_sdf_tpu_torch.ops.kernels import scatter_add as sa
-    from gradient_sdf_tpu_torch.ops.kernels import track_compact as tc
-
-    return {"scatter_add": sa, "merge_clear": mc, "raycast_march": rm,
-            "gn_residual_reduce": gt, "fuse_integrate": fi,
-            "fals_normals": fn, "track_compact": tc, "ba_voxel_sums": ba,
-            "render_windows": rw, "prior_windows": pw, "ray_finish": rf}
-
-
 def reset_launch_counts():
-    for mod in kernel_modules().values():
-        mod.reset_launch_count()
+    from gradient_sdf_tpu_torch.utils import trace
+
+    trace.reset_launches()
 
 
 def launch_counts():
-    counts = {name: mod.launch_count for name, mod in kernel_modules().items()}
-    counts["scatter_add_rows"] = kernel_modules()["scatter_add"].rows_launch_count
-    gt = kernel_modules()["gn_residual_reduce"]
-    counts["gn_step"] = gt.step_launch_count
-    counts["gn_track_loop"] = gt.loop_launch_count
-    counts["fuse_claim"] = kernel_modules()["fuse_integrate"].claim_launch_count
-    counts["ba_pose_systems"] = kernel_modules()["ba_voxel_sums"].pose_launch_count
-    return counts
+    from gradient_sdf_tpu_torch.utils import trace
+
+    return trace.launches()
 
 
 # one card fuses a frame in one launch of the normals kernel and the two

@@ -16,6 +16,13 @@ K after a frame, and `--resume FILE` picks a run up from such a file (from
 either package). `--profile DIR` writes a `torch.profiler` Chrome trace of
 the third processed frame into DIR.
 
+`--metrics-json` and `--profile` turn on the port's tracing
+(`utils/trace`): each `frame_log` entry of the metrics then carries the
+frame's spans in ms (`track_launch_ms`, `track_read_ms`, `fuse_launch_ms`,
+`fuse_read_ms`), its device-to-host reads (`host_reads`) and its kernel
+launches (`launches`), and the Chrome trace names the host's idle gaps of
+the device by the same `gsdf.*` spans.
+
 The loop is synchronous and reference-exact: each frame's convergence and
 growth flags are read before the next frame starts, so `--merged-step` and
 `--sync-growth-checks` are accepted as no-ops.
@@ -53,7 +60,7 @@ from ..models.grad_sdf import GradSdfMap
 from ..models.pixel_sdf import PixelSdfMap
 from ..utils import checkpoint as ckpt
 from ..utils import device as device_mod
-from ..utils import tumio
+from ..utils import trace, tumio
 from ..utils.timer import Timer
 
 
@@ -92,13 +99,16 @@ def build_parser():
                         "only for ATE evaluation; ignored if absent")
     p.add_argument("--save-sdf", dest="save_sdf", action="store_true")
     p.add_argument("--metrics-json", default=None,
-                   help="optional path for per-run structured metrics")
+                   help="optional path for per-run structured metrics, with "
+                        "each frame's program spans, host reads and kernel "
+                        "launches")
     p.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
                    default=0, help="checkpoint every N integrated frames (0=off)")
     p.add_argument("--resume", default=None, help="checkpoint .npz to resume from")
     p.add_argument("--profile", default=None,
                    help="directory for a torch.profiler Chrome trace of the "
-                        "third processed frame")
+                        "third processed frame, its host time named by the "
+                        "program's gsdf.* spans")
     p.add_argument("--sync-growth-checks", dest="lagged_flags",
                    action="store_false",
                    help="no-op: the loop always resolves each frame's flags "
@@ -170,23 +180,6 @@ def run_scan(args, *, check_replicated: bool = False) -> dict:
                            device=args.device)
 
 
-def _launch_counts():
-    from ..ops.kernels import (fals_normals, fuse_integrate, gn_track,
-                               merge_clear, raycast_march, scatter_add,
-                               track_compact)
-
-    return {"fals_normals": fals_normals.launch_count,
-            "track_compact": track_compact.launch_count,
-            "fuse_claim": fuse_integrate.claim_launch_count,
-            "fuse_integrate": fuse_integrate.launch_count,
-            "scatter_add": scatter_add.launch_count,
-            "merge_clear": merge_clear.launch_count,
-            "raycast_march": raycast_march.launch_count,
-            "gn_track_loop": gn_track.loop_launch_count,
-            "gn_residual_reduce": gn_track.launch_count,
-            "gn_step": gn_track.step_launch_count}
-
-
 def _run(args, block_parallel, check_replicated) -> dict:
     """The frame loop, on one device (`block_parallel` None) or as one rank
     of a mesh of `args.devices` ranks."""
@@ -205,12 +198,26 @@ def _run(args, block_parallel, check_replicated) -> dict:
 
 
 def _loop(args, mesh, check_replicated) -> dict:
+    """`_scan`, traced where the run reports its frames (`frame_log` in
+    `--metrics-json`, the Chrome trace of `--profile`)."""
+    with trace.tracing(bool(args.metrics_json or args.profile)):
+        return _scan(args, mesh, check_replicated)
+
+
+# a frame_log entry's keys for the program's spans (`utils/trace`)
+SPAN_KEYS = {"gsdf.track.launch": "track_launch_ms",
+             "gsdf.track.read": "track_read_ms",
+             "gsdf.fuse.launch": "fuse_launch_ms",
+             "gsdf.fuse.read": "fuse_read_ms"}
+
+
+def _scan(args, mesh, check_replicated) -> dict:
     if mesh is not None:
         from ..parallel import mesh as mesh_mod
         from ..parallel import sharding
 
         dev = mesh.device
-        launches0 = _launch_counts()
+        launches0 = trace.launches()
         coll0 = (mesh_mod.calls, mesh_mod.nbytes)
     else:
         dev = _device(args.device)
@@ -264,7 +271,10 @@ def _loop(args, mesh, check_replicated) -> dict:
     R_pp, t_pp = R_cur, t_cur
     warm_alpha = 0.0 if args.no_warm else float(args.warm_alpha or 0.0)
     invalid_frames = []
-    frame_log = []  # per-frame timings (device-synchronized) and GN iterations
+    # per frame: host timings (track_frame and update each end in a read
+    # that waits for the device), GN iterations, and the program's spans,
+    # reads and kernel launches (`SPAN_KEYS`; None where not traced)
+    frame_log = []
     last = None if args.last < 0 else args.last + 1
     tracker_set = False
     n_frames = 0
@@ -326,10 +336,13 @@ def _loop(args, mesh, check_replicated) -> dict:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
             prof.start()
+        trace.take()   # what lies between frames is no frame's
+        launched0 = trace.launches()
         t_frame = time.perf_counter()
         if mesh is not None:
             coll_frame = (mesh_mod.calls, mesh_mod.nbytes)
-        depth = on_dev(frame.depth)
+        with trace.span("gsdf.frame.upload"):
+            depth = on_dev(frame.depth)
         entry = {"frame": i, "load_ms": load_ms, "track_ms": None,
                  "fuse_ms": None, "gn_iters": None}
         fresh = i == first and not resumed   # the frame that starts the map
@@ -341,7 +354,6 @@ def _loop(args, mesh, check_replicated) -> dict:
                 R_cur, t_cur = on_dev(g[1]), on_dev(g[2])
             T.tic()
             sdf_map.update(depth, K, (R_cur, t_cur))
-            _sync(dev)
             entry["fuse_ms"] = T.toc("Integrate depth data into Sdf") * 1e3
         else:
             T.tic()
@@ -363,7 +375,6 @@ def _loop(args, mesh, check_replicated) -> dict:
                     sdf_map.cfg.grid, sdf_map.cfg.fusion, cfg.tracker,
                     mode=track_mode, compact=sdf_map.track_buffer(
                         depth.shape, cfg.tracker.sampling))
-            _sync(dev)
             entry["track_ms"] = T.toc("Point optimization") * 1e3
             entry["gn_iters"] = res.num_iters
             R_pp, t_pp = R_cur, t_cur
@@ -371,7 +382,6 @@ def _loop(args, mesh, check_replicated) -> dict:
             if res.converged:
                 T.tic()
                 sdf_map.update(depth, K, (R_cur, t_cur))
-                _sync(dev)
                 entry["fuse_ms"] = T.toc("Integrate depth data into Sdf") * 1e3
             else:
                 invalid_frames.append(i)
@@ -384,8 +394,16 @@ def _loop(args, mesh, check_replicated) -> dict:
                     mesh, sdf_map.grid, R_cur, t_cur,
                     flags=(i in invalid_frames, sdf_map.counter))
         frame_log.append(entry)
-        pose_entries.append((frame.timestamp, R_cur.cpu().numpy(),
-                             t_cur.cpu().numpy()))
+        with trace.span("gsdf.frame.pose_read"):
+            pose_entries.append((frame.timestamp, R_cur.cpu().numpy(),
+                                 t_cur.cpu().numpy()))
+        trace.count("gsdf.reads", 2)
+        rec = trace.take()
+        for name, key in SPAN_KEYS.items():
+            entry[key] = (rec.spans[name] * 1e3 if name in rec.spans
+                          else None)
+        entry["host_reads"] = rec.counters.get("gsdf.reads")
+        entry["launches"] = trace.launched(launched0)
         n_frames += 1
         if prof is not None:
             _sync(dev)
@@ -435,8 +453,9 @@ def _loop(args, mesh, check_replicated) -> dict:
     if mesh is not None:
         # kernel launches of this run, summed over the ranks
         names = sorted(launches0)
-        counts = torch.tensor([_launch_counts()[k] - launches0[k]
-                               for k in names], dtype=torch.int64, device=dev)
+        now = trace.launches()
+        counts = torch.tensor([now[k] - launches0[k] for k in names],
+                              dtype=torch.int64, device=dev)
         counts = mesh_mod.psum(counts, mesh, count=False).tolist()
         metrics["mesh"] = {
             "devices": mesh.size, "rays": mesh.shape[0],

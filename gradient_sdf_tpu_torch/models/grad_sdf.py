@@ -27,6 +27,7 @@ from ..ops import fusion, normals, query
 from ..ops import voxel_grid as vg
 from ..ops.kernels import fuse_integrate, track_compact
 from ..utils import device as device_mod
+from ..utils import trace
 from ..utils.logging_util import get_logger
 from ..utils.ply import save_mesh_ply, save_point_cloud_ply
 
@@ -126,19 +127,26 @@ class GradSdfMap:
 
     def update(self, depth, K, pose, kf_slot: int = -1):
         """Integrate one depth frame (MapGradPixelSdf.cpp:43-122), then act
-        on the growth flags (one device->host read)."""
-        depth = self._tensor(depth)
-        H, W = depth.shape
-        self.ensure_cache(np.asarray(K), W, H)
-        R, t = self._tensor(pose[0]), self._tensor(pose[1])
-        self._fuse(depth, R, t, kf_slot)
+        on the growth flags (one device->host read). Traced as
+        `gsdf.fuse.launch`, `gsdf.fuse.read` and, on a frame that grows the
+        grid, `gsdf.fuse.grow` (`utils/trace`)."""
+        with trace.span("gsdf.fuse.launch"):
+            depth = self._tensor(depth)
+            H, W = depth.shape
+            self.ensure_cache(np.asarray(K), W, H)
+            R, t = self._tensor(pose[0]), self._tensor(pose[1])
+            self._fuse(depth, R, t, kf_slot)
         self.counter += 1
-        overflow, oob = torch.stack([self.grid.overflow.to(torch.int32),
-                                     self.grid.oob_samples]).tolist()
-        if overflow:
-            self._grow()
-        if oob > 0:
-            self._grow_directory()
+        with trace.span("gsdf.fuse.read"):
+            overflow, oob = torch.stack([self.grid.overflow.to(torch.int32),
+                                         self.grid.oob_samples]).tolist()
+        trace.count("gsdf.reads")
+        if overflow or oob > 0:
+            with trace.span("gsdf.fuse.grow"):
+                if overflow:
+                    self._grow()
+                if oob > 0:
+                    self._grow_directory()
 
     def _fuse(self, depth, R, t, kf_slot):
         gcfg, fcfg = self.cfg.grid, self.cfg.fusion

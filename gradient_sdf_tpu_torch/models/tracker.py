@@ -50,7 +50,7 @@ from ..config import FusionConfig, GridConfig, TrackerConfig
 from ..ops import query
 from ..ops import voxel_grid as vg
 from ..ops.kernels import gn_track, track_compact
-from ..utils import se3
+from ..utils import se3, trace
 
 
 class TrackResult(NamedTuple):
@@ -187,7 +187,9 @@ def track_frame(
     (`launch_track`), the plain loop on the CPU (module note). `compact`
     is the caller's compaction buffer for such frames
     (`GradSdfMap.track_buffer`); without it the card's path allocates one
-    for this call."""
+    for this call. Traced as `gsdf.track.launch` (the CPU path: the
+    compaction) and `gsdf.track.read` (the CPU path: the plain loop), with
+    each host read counted in `gsdf.reads` (`utils/trace`)."""
     dev = depth.device
     if dev.type == "cuda":
         if tcfg.num_iterations < 1:
@@ -197,13 +199,18 @@ def track_frame(
             R, t = _pose_copy(R0, t0, dev)
             return TrackResult(R=R, t=t, converged=False, num_iters=0,
                                energy=0.0, num_valid=0)
-        R, t, status = launch_track(grid, depth, K, R0, t0, gcfg, fcfg, tcfg,
-                                    mode, compact)
-        small, _, E, cnt, iters = status.tolist()
+        with trace.span("gsdf.track.launch"):
+            R, t, status = launch_track(grid, depth, K, R0, t0, gcfg, fcfg,
+                                        tcfg, mode, compact)
+        with trace.span("gsdf.track.read"):
+            small, _, E, cnt, iters = status.tolist()
+        trace.count("gsdf.reads")
         return TrackResult(R=R, t=t, converged=small != 0.0,
                            num_iters=int(iters), energy=E, num_valid=int(cnt))
-    pts = compact_points(depth, K, fcfg, tcfg)
-    return track_points_plain(grid, pts, R0, t0, gcfg, fcfg, tcfg, mode)
+    with trace.span("gsdf.track.launch"):
+        pts = compact_points(depth, K, fcfg, tcfg)
+    with trace.span("gsdf.track.read"):
+        return track_points_plain(grid, pts, R0, t0, gcfg, fcfg, tcfg, mode)
 
 
 def launch_track(grid, depth, K, R0, t0, gcfg: GridConfig, fcfg: FusionConfig,
@@ -263,7 +270,10 @@ def gauss_newton(residual_pass, R0, t0, tcfg: TrackerConfig,
         R, t, small, bad = gn_track.gn_update(H, g, R, t, tcfg.damping,
                                               conv_sq)
         converged = bool(small)
+        trace.count("gsdf.reads")
         k += 1
+    if E is not None:
+        trace.count("gsdf.reads", 2)   # the last pass's E and count
     return TrackResult(R=R, t=t, converged=converged, num_iters=k,
                        energy=float(E) if E is not None else 0.0,
                        num_valid=int(cnt) if cnt is not None else 0)
@@ -284,6 +294,7 @@ def gn_loop(reduce, R0, t0, tcfg: TrackerConfig, dev) -> TrackResult:
         gn_track.gn_step(reduce(R, t), R, t, status, damping=tcfg.damping,
                          conv_sq=conv_sq)
         small, _, E, cnt = status.tolist()
+        trace.count("gsdf.reads")
         converged = small != 0.0
         k += 1
     return TrackResult(R=R, t=t, converged=converged, num_iters=k,

@@ -62,6 +62,7 @@ from ..ops import voxel_grid as vg
 from ..ops.kernels import gn_track, track_compact
 from ..ops.kernels.merge_clear import merge_touched
 from ..ops.kernels.scatter_add import new_accumulator, scatter_add_fields
+from ..utils import trace
 from .mesh import (BLOCK_AXIS, RAY_AXIS, WORLD, Mesh, all_gather_rows,
                    broadcast, psum, shard_rows)
 
@@ -174,6 +175,7 @@ def sharded_track_frame(mesh: Mesh, grid, depth, K, R0, t0, gcfg, fcfg,
     pts, count = track_compact.track_compact(depth, K, fcfg.z_min, fcfg.z_max,
                                              tcfg.sampling, compact)
     pts = pts[shard_rows(int(count), mesh, RAY_AXIS)]
+    trace.count("gsdf.reads")
     return tracker_mod.gn_loop(
         lambda R, t: sharded_residual_pass(mesh, grid, pts, R, t, gcfg, fcfg),
         R0, t0, tcfg, depth.device)

@@ -359,6 +359,33 @@ def test_scan3d_load_ms_and_loop_fps(apps):
         assert 1 <= m["reader"]["peak_resident"] <= 16 + 2
 
 
+def test_scan3d_frame_log_carries_the_program_spans(apps):
+    """With --metrics-json each frame's entry holds the program's spans
+    (utils/trace) in ms, its host reads and its launches (none on the
+    CPU, where the wrappers run their plain versions)."""
+    for mode in ("gt", "track"):
+        _, m = apps["torch", mode]
+        for e in m["frame_log"]:
+            tracked = e["gn_iters"] is not None
+            fused = e["fuse_ms"] is not None
+            for key, on in (("track_launch_ms", tracked),
+                            ("track_read_ms", tracked),
+                            ("fuse_launch_ms", fused),
+                            ("fuse_read_ms", fused)):
+                assert (e[key] is not None) == on, (mode, e)
+                assert e[key] is None or 0 < e[key] < e["frame_ms"]
+            if tracked:
+                assert (e["track_launch_ms"] + e["track_read_ms"]
+                        <= e["track_ms"])
+            if fused:
+                assert e["fuse_launch_ms"] + e["fuse_read_ms"] <= e["fuse_ms"]
+            # the plain GN loop's flag a pass and its E and count, the
+            # growth flags, the pose's two tensors
+            assert e["host_reads"] == ((e["gn_iters"] or 0) + 2 * tracked
+                                       + fused + 2)
+            assert e["launches"] == 0
+
+
 def test_scan3d_apps_agree_on_trajectory(apps, dataset):
     (jres, jm), (tres, tm) = apps["jax", "track"], apps["torch", "track"]
     tj = tumio.read_trajectory(os.path.join(jres, "_poses.txt"))
