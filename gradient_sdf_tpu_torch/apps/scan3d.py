@@ -19,9 +19,11 @@ the third processed frame into DIR.
 `--metrics-json` and `--profile` turn on the port's tracing
 (`utils/trace`): each `frame_log` entry of the metrics then carries the
 frame's spans in ms (`track_launch_ms`, `track_read_ms`, `fuse_launch_ms`,
-`fuse_read_ms`), its device-to-host reads (`host_reads`) and its kernel
-launches (`launches`), and the Chrome trace names the host's idle gaps of
-the device by the same `gsdf.*` spans.
+`fuse_read_ms`), its device-to-host reads (`host_reads`), whether
+`GradSdfMap.update` captured its fusion as a CUDA graph and replayed it
+(`graph_captures`, `graph_replays`: 0 or 1, always 0 on the CPU and on a
+mesh) and its kernel launches (`launches`), and the Chrome trace names the
+host's idle gaps of the device by the same `gsdf.*` spans.
 
 The loop is synchronous and reference-exact: each frame's convergence and
 growth flags are read before the next frame starts, so `--merged-step` and
@@ -403,6 +405,8 @@ def _scan(args, mesh, check_replicated) -> dict:
             entry[key] = (rec.spans[name] * 1e3 if name in rec.spans
                           else None)
         entry["host_reads"] = rec.counters.get("gsdf.reads")
+        for key in ("graph_captures", "graph_replays"):
+            entry[key] = rec.counters.get(f"gsdf.fuse.{key}", 0)
         entry["launches"] = trace.launched(launched0)
         n_frames += 1
         if prof is not None:

@@ -12,6 +12,22 @@ extract_pc / save_sdf`. Tensors live on `device`: the CUDA card by default,
 fuses through `sharding.sharded_fuse_frame`. Every rank then calls every
 method: the queries and exports assemble the whole grid (a collective),
 and only rank 0 writes files.
+
+On one card, without a mesh and without visibility words, `update`
+replays the frame's fusion as one CUDA graph (`CudaGraphRecorder`): the
+normals, claim and integrate launches of `fusion.fuse_frame`, then two
+copies of the growth flags into pinned host memory. The graph reads the
+frame's depth and pose from static buffers it owns, and is keyed on
+everything it captured by address or value (`_graph_key`: the grid's,
+accumulator's, scratch's and camera cache's tensors, the frame's shape,
+the configuration, the fusion method). A frame under a key not seen
+before runs the direct launches; that frame warms what the capture must
+not allocate, and the next frame under the same key captures and
+replays. Growth, `restore`, `attach_mesh`, a new camera or a replaced
+grid change the key and drop the graph. The CPU, the mesh and the
+visibility maps (a per-frame keyframe slot is a by-value kernel
+argument) take the direct launches always. Traced as the counters
+`gsdf.fuse.graph_captures` and `gsdf.fuse.graph_replays`.
 """
 
 from __future__ import annotations
@@ -32,7 +48,76 @@ from ..utils.logging_util import get_logger
 from ..utils.ply import save_mesh_ply, save_point_cloud_ply
 
 
+class CudaGraphRecorder:
+    """A function's launches captured as one CUDA graph on `device`, not
+    run; `replay()` enqueues them on the current stream and `wait()`
+    waits for that stream. Captures on CUDA devices only (`fits`)."""
+
+    @staticmethod
+    def fits(device) -> bool:
+        return device.type == "cuda"
+
+    def __init__(self, fn, device):
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            fn()
+
+    def replay(self):
+        self.graph.replay()
+
+    def wait(self):
+        torch.cuda.current_stream(self.device).synchronize()
+
+
+class _FuseGraph:
+    """One fused frame of map `m` as a graph of `m.graph_recorder` (module
+    note): `m._fuse` on the static buffers `depth` (f32 `shape`), `R`, `t`,
+    then the grid's overflow flag and oob count copied into `flags` (int32
+    [2], pinned on a card; the flag's byte is the first word's low byte).
+    `key` is the map's `_graph_key` at the capture. The kernel wrappers'
+    launch counters count the launches the capture made once a replay."""
+
+    def __init__(self, m, key, shape):
+        dev = m.device
+        self.key = key
+        self.depth = torch.empty(shape, dtype=torch.float32, device=dev)
+        self.R = torch.empty((3, 3), dtype=torch.float32, device=dev)
+        self.t = torch.empty(3, dtype=torch.float32, device=dev)
+        self.flags = torch.zeros(2, dtype=torch.int32,
+                                 pin_memory=dev.type == "cuda")
+        before = trace.launches()
+        self.graph = m.graph_recorder(lambda: self._frame(m), dev)
+        # a capture runs nothing: its counts move to the replays
+        self.launches = {k: n - before[k]
+                         for k, n in trace.launches().items() if n != before[k]}
+        trace.add_launches({k: -n for k, n in self.launches.items()})
+
+    def _frame(self, m):
+        m._fuse(self.depth, self.R, self.t, -1)
+        g = m.grid
+        self.flags.view(torch.uint8)[:1].copy_(
+            g.overflow.view(torch.uint8).reshape(1), non_blocking=True)
+        self.flags[1:].copy_(g.oob_samples.reshape(1), non_blocking=True)
+
+    def replay(self, depth, R, t):
+        """Enqueue the frame of `depth`, `R`, `t` (on the map's device)."""
+        # one enqueue for the three copies: the device waits for the host
+        # between separate ones
+        torch._foreach_copy_([self.depth, self.R, self.t], [depth, R, t])
+        self.graph.replay()
+        trace.add_launches(self.launches)
+
+    def read(self) -> list:
+        """[overflow, oob_samples] after the frame: one wait."""
+        self.graph.wait()
+        return self.flags.tolist()
+
+
 class GradSdfMap:
+    # captures a fused frame as a graph (a test substitutes a stub)
+    graph_recorder = CudaGraphRecorder
+
     def __init__(self, cfg: PipelineConfig, with_vis: bool = False,
                  device="cuda"):
         self.cfg = cfg
@@ -59,6 +144,10 @@ class GradSdfMap:
                          kf_words), dtype=torch.int32, device=self.device)
             if with_vis else None
         )
+        # the fused frame's graph, and the key of the last frame that ran
+        # without one (module note)
+        self._graph: Optional[_FuseGraph] = None
+        self._graph_seen = None
 
     def _new_scratch(self):
         """The accumulator and the kernel's scratch, sized to the grid. A
@@ -127,7 +216,8 @@ class GradSdfMap:
 
     def update(self, depth, K, pose, kf_slot: int = -1):
         """Integrate one depth frame (MapGradPixelSdf.cpp:43-122), then act
-        on the growth flags (one device->host read). Traced as
+        on the growth flags (one device->host read). On one card a replay
+        of the frame's graph where it fits (module note). Traced as
         `gsdf.fuse.launch`, `gsdf.fuse.read` and, on a frame that grows the
         grid, `gsdf.fuse.grow` (`utils/trace`)."""
         with trace.span("gsdf.fuse.launch"):
@@ -135,11 +225,15 @@ class GradSdfMap:
             H, W = depth.shape
             self.ensure_cache(np.asarray(K), W, H)
             R, t = self._tensor(pose[0]), self._tensor(pose[1])
-            self._fuse(depth, R, t, kf_slot)
+            graph = self._launch(depth, R, t, kf_slot)
         self.counter += 1
         with trace.span("gsdf.fuse.read"):
-            overflow, oob = torch.stack([self.grid.overflow.to(torch.int32),
-                                         self.grid.oob_samples]).tolist()
+            if graph is None:
+                overflow, oob = torch.stack(
+                    [self.grid.overflow.to(torch.int32),
+                     self.grid.oob_samples]).tolist()
+            else:
+                overflow, oob = graph.read()
         trace.count("gsdf.reads")
         if overflow or oob > 0:
             with trace.span("gsdf.fuse.grow"):
@@ -147,6 +241,39 @@ class GradSdfMap:
                     self._grow()
                 if oob > 0:
                     self._grow_directory()
+
+    def _launch(self, depth, R, t, kf_slot) -> Optional[_FuseGraph]:
+        """Enqueue the frame's fusion: a replay of the map's graph while its
+        key holds; a capture and its replay where the last frame without a
+        graph ran under this frame's key; else the direct launches (module
+        note). Returns the graph replayed, or None."""
+        if not (self.mesh is None and self.vis is None
+                and self.graph_recorder.fits(self.device)):
+            self._fuse(depth, R, t, kf_slot)
+            return None
+        key = self._graph_key(depth.shape)
+        if self._graph is None or self._graph.key != key:
+            self._graph = None
+            if key != self._graph_seen:
+                self._fuse(depth, R, t, kf_slot)
+                # after the frame: it may have grown the scratch
+                self._graph_seen = self._graph_key(depth.shape)
+                return None
+            self._graph = _FuseGraph(self, key, depth.shape)
+            trace.count("gsdf.fuse.graph_captures")
+        self._graph.replay(depth, R, t)
+        trace.count("gsdf.fuse.graph_replays")
+        return self._graph
+
+    def _graph_key(self, shape) -> tuple:
+        """What a graph of this map's fusion captures by address or value:
+        the grid's, the accumulator's, the scratch's and the camera cache's
+        tensors, the frame's shape, the grid and fusion configurations and
+        the fusion method (its field count)."""
+        tensors = (*self.grid, self.acc, *vars(self.scratch).values(),
+                   *self.cache[:-1])
+        return (tuple(map(torch.Tensor.data_ptr, tensors)), tuple(shape),
+                self.cfg.grid, self.cfg.fusion, type(self)._fuse)
 
     def _fuse(self, depth, R, t, kf_slot):
         gcfg, fcfg = self.cfg.grid, self.cfg.fusion

@@ -30,7 +30,10 @@ PyTorch) between them. Slot order is the JAX package's: the claim's
 winners are ordered by their global (pixel, k) candidate index.
 
 A fused frame on the card: three kernel launches and the claim status's
-memset, no host sync. `GradSdfMap.update` adds one for the growth flags.
+memset, no host sync. `GradSdfMap.update` adds one for the growth flags;
+on one card without a mesh or visibility words it replays the four, and
+the flags' copies to pinned host memory, as one CUDA graph
+(`models/grad_sdf`).
 
 `frame_samples`, `_alloc_slots`, `_scatter_samples` and
 `_merge_accumulators` are the same steps as plain tensor passes around the

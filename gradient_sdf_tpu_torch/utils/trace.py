@@ -24,6 +24,15 @@ Every name starts with `gsdf.`, and none holds a kernel's name as a word
                          apps/scan3d's upload of a frame and pose read
     gsdf.reads           (counter) the explicit device-to-host reads of
                          the frame's path
+    gsdf.fuse.graph_captures
+                         (counter) `update`'s captures of a fused frame
+                         as a CUDA graph (`models/grad_sdf`)
+    gsdf.fuse.graph_replays
+                         (counter) fused frames that `update` served by a
+                         replay of that graph
+
+A replay runs the launches its capture made: `add_launches` counts them
+on the wrappers' counters, so `launches()` counts the kernels that ran.
 """
 
 from __future__ import annotations
@@ -173,6 +182,14 @@ def launched(since: dict) -> int:
     """Kernel launches since the snapshot `since` (`launches()`), each once."""
     now = launches()
     return sum(now[k] - since[k] for k in now if k != "scatter_add_rows")
+
+
+def add_launches(counts: dict):
+    """Add `counts` ({name: launches}, names as in `launches()`) to the
+    wrappers' counters."""
+    for name, mod, attr in _launch_counters():
+        if name in counts:
+            setattr(mod, attr, getattr(mod, attr) + counts[name])
 
 
 def reset_launches():

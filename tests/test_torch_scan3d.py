@@ -384,6 +384,8 @@ def test_scan3d_frame_log_carries_the_program_spans(apps):
             assert e["host_reads"] == ((e["gn_iters"] or 0) + 2 * tracked
                                        + fused + 2)
             assert e["launches"] == 0
+            # no graph on the CPU
+            assert e["graph_captures"] == e["graph_replays"] == 0
 
 
 def test_scan3d_apps_agree_on_trajectory(apps, dataset):
