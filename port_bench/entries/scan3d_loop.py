@@ -1,15 +1,20 @@
 """Scan3D's per-frame body as a closed loop: the port's dense tracking and
 fusion over a revolution of frames, one frame in flight.
 
-Set-up makes the revolution's frames from the seed into host memory and
-fuses them at their true poses (the upstream's fusion-only mode with a
-pose file; the map's frame is the first camera's, as in the app), growing
-the grid as the app does: the room's first pass, the same map in every run
-of a seed. The window then goes round the revolution again and again, each
-time from that map and the pose of the revolution's last frame (`Start`),
-so that every revolution of the window is the same work: the room's second
-pass. Set-up makes one such revolution too, which builds and warms all the
-window runs, and then puts the map back. Each frame is the body of
+Set-up makes the revolution's frames into host memory and fuses them at
+their true poses (the upstream's fusion-only mode with a pose file; the
+map's frame is the first camera's, as in the app), growing the grid as the
+app does: the room's first pass. The room, its revolution and its depth
+noise come from the traffic file's `scene_seed` where it names one, so that
+every run's seed gets the same work (the run's seed then draws only the
+frames judged); else from the run's seed. The window then goes round the
+revolution again and again, each time from that map and the pose of the
+revolution's last frame (`Start`), so that every revolution of the window
+is the same work: the room's second pass. The window is whole revolutions:
+once `seconds` have passed it ends with the revolution in hand, and its
+time runs to that revolution's last pose on the host. Set-up makes one such
+revolution too, which builds and warms all the window runs, and then puts
+the map back. Each frame is the body of
 `apps/scan3d._loop` without its prints, timers and loader: the host
 array's upload, `models.tracker.track_frame` against `GradSdfMap.grid`,
 `GradSdfMap.update` at the refined pose if tracking converged, and the
@@ -62,9 +67,11 @@ def program_config(cfg: dict):
 
 
 class Scene:
-    """The cell's inputs, all from the seed."""
+    """The cell's inputs, all from the traffic file's `scene_seed`, or from
+    the run's seed where the file names none."""
 
     def __init__(self, cfg, traffic, seed, device):
+        seed = traffic.get("scene_seed", seed)
         self.K = scene.intrinsics(cfg)
         self.room = scene.make_room(seed, traffic, device)
         world = scene.circle_poses(traffic, seed)
@@ -283,7 +290,8 @@ def run(*, cfg, traffic, seed, seconds, trace, device, chips, t_process,
     deadline = t_start + seconds
     while True:
         now = time.perf_counter()
-        if now >= deadline:
+        idx = n % N
+        if idx == 0 and now >= deadline:
             break
         in_stretch = False
         if stretch is not None and stretch.t1 is None:
@@ -294,7 +302,6 @@ def run(*, cfg, traffic, seed, seconds, trace, device, chips, t_process,
                     stretch.stop()
                 else:
                     in_stretch = True
-        idx = n % N
         if idx == 0 and n > 0:
             R, t = start.reset(m)
             by_rev.append(0)

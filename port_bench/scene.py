@@ -1,8 +1,9 @@
 """The benchmark's own scene: an analytic office room seen from a circle.
 
 Frozen here, apart from the program's `data/synth.py`, so that a change to
-the program cannot move the yardstick. Everything is drawn from the run's
-seed:
+the program cannot move the yardstick. Everything is drawn from a seed (a
+cell's traffic file may fix it with `scene_seed`, so that every run's seed
+gets the same room):
 
 * the room: an axis-aligned box (the inner walls, floor and ceiling), with
   boxes (desks, shelves, cabinets) standing on the floor against the walls

@@ -58,6 +58,27 @@ def test_scan_window_goes_round_the_revolution_from_the_start():
     summary = [s for s in err.splitlines() if s.startswith("scan3d:")][-1]
     by_rev = summary.split("failed a revolution [")[1].split("]")[0].split(",")
     assert len(by_rev) >= 2 and line["attempted"] > 4, summary
+    # the window is whole revolutions
+    assert line["attempted"] == 4 * len(by_rev), summary
+
+
+def test_scene_seed_gives_every_run_the_same_scene():
+    """With the traffic file's `scene_seed` two runs' seeds get the same
+    frames and poses; without it each seed draws its own room."""
+    from port_bench import harness
+
+    _, _, cfg, traffic = small_scan_cell()
+    traffic["camera"].update(frames=2)
+    loop = harness.entry(traffic["entry"])
+    dev = torch.device("cpu")
+    assert "scene_seed" in traffic
+    a, b = (loop.Scene(cfg, traffic, s, dev) for s in (2**31 + 21, 2**31 + 22))
+    for x, y in zip(a.frames + [p[1] for p in a.poses],
+                    b.frames + [p[1] for p in b.poses]):
+        assert (x == y).all()
+    del traffic["scene_seed"]
+    c, d = (loop.Scene(cfg, traffic, s, dev) for s in (2**31 + 21, 2**31 + 22))
+    assert any((x != y).any() for x, y in zip(c.frames, d.frames))
 
 
 def test_scan_traced_line_reads_the_layers():
